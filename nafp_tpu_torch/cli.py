@@ -1,11 +1,11 @@
-"""Command line of nafp_tpu_torch: generate -> evaluate (train: slice 2).
+"""Command line of nafp_tpu_torch: generate -> evaluate (train: not ported).
 
 Counterpart of ``nafp_tpu/cli.py`` with the same verbs and flags. Every
 command runs on ``cuda:0`` unless ``--nogpu`` asks for the CPU; without a
 card and without ``--nogpu`` it raises instead of moving to the CPU.
 
     python -m nafp_tpu_torch.cli generate NAME [INDEX] [-c CONFIG] ...
-    python -m nafp_tpu_torch.cli evaluate NAME INDEX -i {l2,ip,ivf,sq8,sq8-flat}
+    python -m nafp_tpu_torch.cli evaluate NAME INDEX [-i TYPE]  # ivfpq default
 """
 from __future__ import annotations
 
@@ -26,11 +26,11 @@ def main():
                                 "allow_extra_args": True})
 @click.argument("checkpoint_name", required=True)
 def train(checkpoint_name):
-    """Not ported yet (slice 2)."""
+    """Not ported yet (the training slice, ROADMAP.md)."""
     del checkpoint_name
     raise click.ClickException(
-        "train is not ported yet (slice 2); train with the JAX package "
-        "and export its params (README)")
+        "train is not ported yet (the training slice, ROADMAP.md items "
+        "6-8); train with the JAX package and export its params (README)")
 
 
 @main.command()
@@ -79,10 +79,11 @@ def generate(checkpoint_name, checkpoint_index, config, source, output,
 @click.option("--config", "-c", default="default", type=click.STRING,
               help="Config preset name; resolved to config/<NAME>.yaml.")
 @click.option("--index_type", "-i", default="ivfpq", type=click.STRING,
-              help="Ported: 'l2', 'ip', 'ivf' (exact f32), 'sq8', "
-                   "'sq8-flat' (exact int8). The JAX package's other types "
-                   "(the default 'ivfpq' included) raise until their slice "
-                   "is ported.")
+              help="Ported: 'ivfpq' (default; IVF-PQ, nlist 256, 8-bit "
+                   "codes), 'ivfpq-rr' (IVF-PQ + exact f32 re-rank), 'l2', "
+                   "'ip', 'ivf' (exact f32), 'sq8', 'sq8-flat' (exact "
+                   "int8). The JAX package's other types ('ivf-sq8', "
+                   "'hnsw', the sharded ones) raise until they are ported.")
 @click.option("--test_seq_len", default="1 3 5 9 11 19", type=click.STRING,
               help="Space-separated segment counts to test "
                    "(default '1 3 5 9 11 19' = 1s..10s).")
@@ -102,7 +103,8 @@ def generate(checkpoint_name, checkpoint_index, config, source, output,
                    "(reference default 1e7).")
 @click.option("--index_cache", default=None, type=click.STRING,
               help="npz path for the built int8 store (sq8/sq8-flat): "
-                   "loaded when present, written after a fresh build.")
+                   "loaded when present, written after a fresh build. "
+                   "IVF-PQ stores are not cached (as in the JAX package).")
 @click.option("--ef_search", default=64, type=click.INT,
               help="Query-time beam width for the hnsw index; ignored by "
                    "the ported (exact) families.")

@@ -1,5 +1,6 @@
 // Exact top-k of q . DB^T on Hopper: the scan and merge kernels shared by
-// topk_f32.cu (kernel B1) and topk_sq8.cu (kernel B2).
+// topk_f32.cu (kernel B1), topk_sq8.cu (kernel B2) and topk_masked.cu
+// (kernel B3).
 //
 // What it computes (the TPU kernels' semantics, nafp_tpu/search/
 // pallas_topk.py): for each query the k best rows by inner product, scores
@@ -30,8 +31,9 @@
 // 512 x 619,500 x 128 launch against 67 TFLOP/s; the DB is 0.3 GB). The
 // scores run on the CUDA cores from shared memory, with no cp.async/TMA
 // pipelining and no tensor cores, so the kernel reaches a fraction of the
-// f32 peak; B2 in particular could take its products on the bf16 tensor
-// cores (wgmma), which this kernel does not use. Those are later work.
+// f32 peak; B2 and B3 in particular could take their products on the bf16
+// tensor cores (wgmma), which this kernel does not use, and B3 could skip
+// the tiles that no query of a CTA probes. Those are later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +51,13 @@ constexpr int QPT = 8;               // queries per thread (one warp's share)
 constexpr int MERGE_THREADS = 256;
 constexpr int MAX_K = 128;
 constexpr int MAX_D = 256;
+
+// What a DB row is and how its score is formed:
+//   F32:    f32 rows, every row below n valid;
+//   SQ8:    int8 rows, (round_bf16(q) . row) * scales[row] + rmask[row];
+//   MASKED: bf16 rows, (round_bf16(q) . row) + mask(ids[row]) +
+//           bias[q][row / list_tile], mask 0 where ids[row] >= 0, else NEG.
+enum class Mode { F32, SQ8, MASKED };
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
@@ -72,13 +81,19 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+__device__ __forceinline__ float bf16_bits_to_float(unsigned short b) {
+  return __uint_as_float((unsigned)b << 16);  // exact
+}
+
 // Shared-memory bytes of one scan CTA.
+template <Mode MODE>
 inline size_t scan_smem_bytes(int d, int k) {
   const int dp = d + 4;
   return sizeof(float) * (size_t)(QB * dp + RB * dp + 2 * RB)  // q, DB, sc/rm
          + (sizeof(float) + sizeof(int)) * (size_t)QB * k      // top-k lists
          + (sizeof(float) + sizeof(int)) * (size_t)QB * RB     // candidates
-         + sizeof(int) * QB;                                   // counts
+         + sizeof(int) * QB                                    // counts
+         + (MODE == Mode::MASKED ? sizeof(float) * QB : 0);    // tile bias
 }
 
 inline size_t merge_smem_bytes(int k) {
@@ -86,15 +101,28 @@ inline size_t merge_smem_bytes(int k) {
          + sizeof(int);
 }
 
-// SQ8: db is int8 (N, d) with per-row scales and an additive row mask; the
-// score is (round_bf16(q) . row) * scale + rmask. Otherwise db is f32 and
-// every row below n is valid.
-template <bool SQ8>
+// Row-side inputs beyond the DB itself: SQ8 reads scales and rmask,
+// MASKED reads ids and bias (row-major (bq, n / list_tile)).
+struct RowInputs {
+  const float* scales;
+  const float* rmask;
+  const int* ids;
+  const float* bias;
+  int list_tile;
+};
+
+// MASKED: list_tile is a multiple of RB and every tile starts at a multiple
+// of RB (chunk_rows is one), so a tile lies inside one list_tile subtile and
+// takes a single bias value per query, staged in shared memory. Scores
+// <= NEG/2 (masked ids, unprobed subtiles) are never candidates; their
+// slots stay empty and come out as -1, as the TPU kernel reports them.
+template <Mode MODE>
 __global__ void __launch_bounds__(THREADS)
 scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
-            const float* __restrict__ scales, const float* __restrict__ rmask,
-            int bq, int n, int d, int k, int chunk_rows, int n_chunks,
-            float* __restrict__ part_v, int* __restrict__ part_i) {
+            RowInputs rin, int bq, int n, int d, int k, int chunk_rows,
+            int n_chunks, float* __restrict__ part_v,
+            int* __restrict__ part_i) {
+  constexpr bool QBF16 = MODE != Mode::F32;  // q rounded to bf16
   extern __shared__ __align__(16) unsigned char smem[];
   const int dp = d + 4;  // row stride: 16-byte aligned, float4 reads conflict-free
   float* qs = reinterpret_cast<float*>(smem);  // [QB][dp]
@@ -106,6 +134,7 @@ scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
   float* cv = reinterpret_cast<float*>(li + QB * k);  // [QB][RB]
   int* ci = reinterpret_cast<int*>(cv + QB * RB);
   int* cnt = ci + QB * RB;                            // [QB]
+  float* qbias = reinterpret_cast<float*>(cnt + QB);  // [QB], MASKED only
 
   const int tid = threadIdx.x;
   const int chunk = blockIdx.x;
@@ -119,7 +148,7 @@ scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < bq)
       v = reinterpret_cast<const float4*>(q + (size_t)(q0 + r) * d)[c];
-    if (SQ8) {
+    if (QBF16) {
       v.x = round_bf16(v.x); v.y = round_bf16(v.y);
       v.z = round_bf16(v.z); v.w = round_bf16(v.w);
     }
@@ -144,10 +173,15 @@ scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
       const int row = t0 + r;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (row < row_end) {
-        if (SQ8) {
+        if (MODE == Mode::SQ8) {
           const char4 b = reinterpret_cast<const char4*>(
               static_cast<const int8_t*>(db) + (size_t)row * d)[c];
           v = make_float4((float)b.x, (float)b.y, (float)b.z, (float)b.w);
+        } else if (MODE == Mode::MASKED) {
+          const ushort4 b = reinterpret_cast<const ushort4*>(
+              static_cast<const unsigned short*>(db) + (size_t)row * d)[c];
+          v = make_float4(bf16_bits_to_float(b.x), bf16_bits_to_float(b.y),
+                          bf16_bits_to_float(b.z), bf16_bits_to_float(b.w));
         } else {
           v = reinterpret_cast<const float4*>(
               static_cast<const float*>(db) + (size_t)row * d)[c];
@@ -155,12 +189,23 @@ scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
       }
       *reinterpret_cast<float4*>(ds + r * dp + 4 * c) = v;
     }
-    if (SQ8) {
+    if (MODE == Mode::SQ8) {
       for (int r = tid; r < RB; r += THREADS) {
         const int row = t0 + r;
-        sc[r] = row < row_end ? scales[row] : 0.f;
-        rm[r] = row < row_end ? rmask[row] : NEG;
+        sc[r] = row < row_end ? rin.scales[row] : 0.f;
+        rm[r] = row < row_end ? rin.rmask[row] : NEG;
       }
+    }
+    if (MODE == Mode::MASKED) {
+      for (int r = tid; r < RB; r += THREADS) {
+        const int row = t0 + r;
+        rm[r] = row < row_end && rin.ids[row] >= 0 ? 0.f : NEG;
+      }
+      const int n_sub = n / rin.list_tile;
+      const int sub = t0 / rin.list_tile;
+      for (int e = tid; e < QB; e += THREADS)
+        qbias[e] = q0 + e < bq ? rin.bias[(size_t)(q0 + e) * n_sub + sub]
+                               : NEG;
     }
     __syncthreads();
 
@@ -194,7 +239,11 @@ scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
       for (int i = 0; i < QPT; ++i) {
         const int qi = tq * QPT + i;
         float s = acc[i][j];
-        if (SQ8) s = s * sc[r] + rm[r];
+        if (MODE == Mode::SQ8) s = s * sc[r] + rm[r];
+        if (MODE == Mode::MASKED) {
+          s = s + rm[r] + qbias[qi];
+          if (s <= NEG / 2) continue;
+        }
         if (q0 + qi < bq && better(s, row, lv[qi * k], li[qi * k])) {
           const int slot = atomicAdd(&cnt[qi], 1);
           cv[qi * RB + slot] = s;
@@ -273,21 +322,20 @@ merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
 
 // Launch scan + merge on `stream`; returns cudaGetLastError() after each
 // step (0 when both launches were accepted).
-template <bool SQ8>
-int launch_topk(const float* q, const void* db, const float* scales,
-                const float* rmask, int bq, int n, int d, int k,
-                int chunk_rows, int n_chunks, float* part_v, int* part_i,
-                float* out_v, int* out_i, cudaStream_t stream) {
+template <Mode MODE>
+int launch_topk(const float* q, const void* db, RowInputs rin, int bq,
+                int n, int d, int k, int chunk_rows, int n_chunks,
+                float* part_v, int* part_i, float* out_v, int* out_i,
+                cudaStream_t stream) {
   cudaGetLastError();  // clear any stale error from earlier work
-  const size_t scan_smem = scan_smem_bytes(d, k);
+  const size_t scan_smem = scan_smem_bytes<MODE>(d, k);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<SQ8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)scan_smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_chunks, (bq + QB - 1) / QB);
-  scan_kernel<SQ8><<<grid, THREADS, scan_smem, stream>>>(
-      q, db, scales, rmask, bq, n, d, k, chunk_rows, n_chunks, part_v,
-      part_i);
+  scan_kernel<MODE><<<grid, THREADS, scan_smem, stream>>>(
+      q, db, rin, bq, n, d, k, chunk_rows, n_chunks, part_v, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<bq, MERGE_THREADS, merge_smem_bytes(k), stream>>>(

@@ -126,12 +126,14 @@ class Dataset:
     # ------------------------------------------------------------------
     def get_train_ds(self, reduce_items_p: int = 0) -> SegmentLoader:
         raise NotImplementedError(
-            "slice 2 (training): the train loader needs the process-shard "
-            "helper of the multi-host mesh, not ported yet")
+            "the training slice (ROADMAP.md items 6-8): the train loader "
+            "needs the process-shard helper of the multi-host mesh, not "
+            "ported yet")
 
     def get_val_ds(self, max_song: int = 500) -> SegmentLoader:
         raise NotImplementedError(
-            "slice 2 (training): the validation loader is not ported yet")
+            "the training slice (ROADMAP.md items 6-8): the validation "
+            "loader is not ported yet")
 
     def get_test_dummy_db_ds(self) -> SegmentLoader:
         fps = _glob_wavs(self.source_root_dir,
@@ -155,8 +157,9 @@ class Dataset:
             return self._plain_db_loader(q), self._plain_db_loader(db)
         if self.datasel_test_query_db == "unseen_syn":
             raise NotImplementedError(
-                "slice 2: 'unseen_syn' query synthesis needs the time-domain "
-                "augmentation (ops/tdaug.augment_replicas), not ported yet")
+                "the training slice (ROADMAP.md item 7): 'unseen_syn' query "
+                "synthesis needs the time-domain augmentation "
+                "(ops/tdaug.augment_replicas), not ported yet")
         raise NotImplementedError(self.datasel_test_query_db)
 
     def get_custom_db_ds(self, source_root_dir: str) -> SegmentLoader:

@@ -86,7 +86,7 @@ def generate_fingerprint(cfg: Dict[str, Any],
     if cfg.get("DEVICE", {}).get("DEVICE_CORPUS"):
         raise NotImplementedError(
             "DEVICE.DEVICE_CORPUS (device-resident audio corpus) is not "
-            "ported yet (slice 2, see ROADMAP.md); set it to False")
+            "ported yet (the training slice, ROADMAP.md item 8); set it to False")
     melspec_fn, _ = get_melspec_fn(cfg)
     variables, checkpoint_index = load_params(cfg, checkpoint_name,
                                               checkpoint_index)

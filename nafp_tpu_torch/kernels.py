@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Optional, Tuple
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("topk_f32", "topk_sq8")
+KERNELS = ("topk_f32", "topk_sq8", "topk_masked")
 _HEADERS = ("topk_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

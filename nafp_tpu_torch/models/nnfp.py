@@ -127,7 +127,7 @@ class LayerNorm1d(nn.Module):
 class BatchNormInference(nn.Module):
     """ELU, then Flax ``nn.BatchNorm(use_running_average=True,
     epsilon=1e-3)`` over channels in f32. Training-mode statistics come
-    with slice 2."""
+    with the training slice."""
 
     def __init__(self, ch: int, eps: float = 1e-3):
         super().__init__()
@@ -140,7 +140,7 @@ class BatchNormInference(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             raise NotImplementedError(
-                "slice 2: batch_norm training statistics are not ported")
+                "the training slice: batch_norm training statistics are not ported")
         x = F.elu(x)
         xf = x.float()
         mul = torch.rsqrt(self.running_var + self.eps) * self.scale

@@ -1,4 +1,4 @@
-"""Exact top-k inner-product search: CUDA kernels B1 and B2, their wrappers
+"""Top-k inner-product search: CUDA kernels B1, B2 and B3, their wrappers
 and their plain PyTorch versions.
 
 Counterpart of ``nafp_tpu/search/pallas_topk.py``:
@@ -7,13 +7,19 @@ Counterpart of ``nafp_tpu/search/pallas_topk.py``:
   exact f32 top-k of ``q · dbᵀ``;
 - ``topk_ip_sq8`` (kernel B2, ``csrc/topk_sq8.cu``) replaces
   ``topk_ip_sq8_pallas``: exact top-k over an int8 store, dequantised on
-  the fly as ``(bf16(q) · row) · scale[row] + rmask[row]``.
+  the fly as ``(bf16(q) · row) · scale[row] + rmask[row]``;
+- ``topk_ip_masked`` (kernel B3, ``csrc/topk_masked.cu``) replaces
+  ``topk_ip_pallas_masked``: top-k over a decoded bf16 IVF-PQ chunk with
+  per-row ids (−1 masks the row) and an additive bias per (query,
+  ``list_tile``-row subtile), the IVF probe mask; positions are mapped
+  through the ids.
 
 Semantics kept from the TPU kernels: scores sorted descending; int32
-positions into ``db``; −1 wherever the score is ≤ NEG/2 (masked rows, and
-the empty slots when k > N); pad and masked rows never beat real rows,
-even when every real score is negative; ``k`` at most 128. Ties between
-equal scores go to the lower position (``jax.lax.top_k``'s order).
+positions into ``db`` (B3: mapped through its ids); −1 wherever the score
+is ≤ NEG/2 (masked rows, and the empty slots when k > N); pad and masked
+rows never beat real rows, even when every real score is negative; ``k``
+at most 128. Ties between equal scores go to the lower position
+(``jax.lax.top_k``'s order).
 
 A wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain version only for CPU tensors. ``LAUNCHES`` counts kernel launches,
@@ -34,7 +40,8 @@ RB = 64                     # DB rows per scan tile (csrc/topk_common.cuh)
 CTAS_PER_SM = 4             # scan CTAs to launch per SM (two waves of two)
 PLAIN_LOGITS_BUDGET = 1 << 30   # bytes of one (block, N) plain score matrix
 
-LAUNCHES: Dict[str, int] = {"topk_ip": 0, "topk_ip_sq8": 0}
+LAUNCHES: Dict[str, int] = {"topk_ip": 0, "topk_ip_sq8": 0,
+                           "topk_ip_masked": 0}
 
 
 def reset_launches() -> None:
@@ -119,6 +126,35 @@ def topk_ip_sq8_plain(q: torch.Tensor, vecs8: torch.Tensor,
         q.shape[0], vecs8.shape[0], k, q.device)
 
 
+def _map_ids(pos: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Positions into the chunk -> its row ids; -1 stays -1."""
+    return torch.where(pos < 0, -1, ids[pos.clamp(min=0).long()]).to(
+        torch.int32)
+
+
+def topk_ip_masked_plain(q: torch.Tensor, db: torch.Tensor,
+                         ids: torch.Tensor, bias: torch.Tensor, k: int,
+                         list_tile: int,
+                         compute_dtype: torch.dtype = torch.float32
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B3 (the JAX package's
+    ``_pq_score_chunk_xla``): q rounded to ``compute_dtype`` (f32 matches
+    the JAX package on the CPU, bf16 the TPU and the CUDA kernel), f32
+    products with the rows, plus the subtile's bias, NEG where the row's id
+    is < 0, then top-k. Returns (scores, row ids), each (Bq, k); −1 where
+    the score is ≤ NEG/2."""
+    _check_k(k)
+    qc = q.to(compute_dtype).float()
+    rows = db.float()
+    invalid = (ids < 0)[None, :]
+
+    def score(s, e):
+        sim = qc[s:e] @ rows.T + bias[s:e].repeat_interleave(list_tile, 1)
+        return sim.masked_fill(invalid, NEG)
+    v, pos = _plain_topk(score, q.shape[0], db.shape[0], k, q.device)
+    return v, _map_ids(pos, ids)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -166,6 +202,8 @@ _ARGTYPES = {
     + [ctypes.c_void_p] * 5,
     "topk_sq8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 5,
+    "topk_masked": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p] * 5,
 }
 
 
@@ -178,7 +216,9 @@ def _lib_fn(name: str):
 
 
 def _launch(lib: str, counter: str, q: torch.Tensor, tensors, n: int,
-            k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+            k: int, extra=()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``lib``'s scan + merge; ``extra`` are the C function's int
+    arguments after k."""
     bq, d = q.shape
     dev = q.device
     chunk_rows, n_chunks = _grid(bq, n, dev)
@@ -190,7 +230,7 @@ def _launch(lib: str, counter: str, q: torch.Tensor, tensors, n: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), *[t.data_ptr() for t in tensors], bq, n, d,
-                 k, chunk_rows, n_chunks, part_v.data_ptr(),
+                 k, *extra, chunk_rows, n_chunks, part_v.data_ptr(),
                  part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
                  stream)
     if err:
@@ -241,3 +281,38 @@ def topk_ip_sq8(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
         return (torch.empty((0, k), device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
     return _launch("topk_sq8", "topk_ip_sq8", q, [vecs8, scales, rmask], n, k)
+
+
+def topk_ip_masked(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
+                   bias: torch.Tensor, k: int, list_tile: int = 128
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k with per-row ids and a per-(query, subtile) bias (kernel B3).
+
+    q (Bq, d) f32 (rounded to bf16 inside the kernel); db (N, d) bf16, the
+    decoded chunk; ids (N,) int32, −1 marks an invalid row anywhere; bias
+    (Bq, N // list_tile) f32, added to every score of the subtile (0 / NEG:
+    the IVF probe mask). ``list_tile`` is a multiple of 64 (the kernel's
+    row tile). On the CPU: the plain version in f32, as the JAX package
+    scores there. Returns (scores f32, row ids int32), each (Bq, k)."""
+    _check_k(k)
+    if list_tile <= 0 or list_tile % RB:
+        raise ValueError(f"list_tile={list_tile}: must be a multiple of {RB}")
+    bq, d = q.shape
+    n = db.shape[0]
+    if n % list_tile or tuple(bias.shape) != (bq, n // list_tile):
+        raise ValueError(f"bias {tuple(bias.shape)} does not match "
+                         f"(Bq, N / list_tile) = ({bq}, {n} / {list_tile})")
+    if _all_on_cpu(q, db, ids, bias):
+        return topk_ip_masked_plain(q, db, ids, bias, k, list_tile)
+    if d % 4 or d > MAX_D:
+        raise ValueError(f"d={d}: the kernel takes d % 4 == 0, d <= {MAX_D}")
+    _check_cuda("q", q, torch.float32, (bq, d))
+    _check_cuda("db", db, torch.bfloat16, (n, d))
+    _check_cuda("ids", ids, torch.int32, (n,))
+    _check_cuda("bias", bias, torch.float32, (bq, n // list_tile))
+    if bq == 0:
+        return (torch.empty((0, k), device=q.device),
+                torch.empty((0, k), dtype=torch.int32, device=q.device))
+    v, pos = _launch("topk_masked", "topk_ip_masked", q, [db, ids, bias], n,
+                     k, extra=(list_tile,))
+    return v, _map_ids(pos, ids)

@@ -13,7 +13,7 @@ import torch
 
 import nafp_tpu.search.evaluate as JE
 import nafp_tpu_torch.search.evaluate as PE
-from nafp_tpu.data.audio_io import create_memmap
+from nafp_tpu.data.audio_io import create_memmap, load_memmap
 
 CPU = torch.device("cpu")
 
@@ -163,6 +163,57 @@ def test_eval_host_rescoring_matches_device(memmaps, tmp_path, monkeypatch):
     np.testing.assert_array_equal(out["host"], out["dev"])
 
 
-def test_eval_ivfpq_default_fails_loudly(memmaps):
-    with pytest.raises(NotImplementedError, match="ivfpq"):
-        PE.eval_fingerprints(memmaps, device=CPU)     # CLI default -i ivfpq
+@pytest.mark.parametrize("index_type", [None, "ivfpq-rr"],
+                         ids=["default-ivfpq", "ivfpq-rr"])
+def test_eval_ivfpq_raw_score_identical(memmaps, tmp_path, monkeypatch,
+                                        index_type):
+    """The CLI default (-i ivfpq) and ivfpq-rr: both packages' evaluate on
+    the same memmaps give one raw_score.npy. Training draws differ between
+    the packages, so both IVFPQIndex.train install the same seeded numpy
+    centroids (noisy DB rows) and codebooks; the decode chunk is shrunk so
+    the JAX package's CPU one-hot decode stays small (its nlist-256 store
+    holds at least 256 * 128 rows)."""
+    import nafp_tpu.search.index as JI
+    import nafp_tpu_torch.search.index as PI
+
+    full = np.concatenate([np.asarray(load_memmap(memmaps, k,
+                                                  display=False)[0])
+                           for k in ("dummy_db", "db")])
+    rng = np.random.default_rng(11)
+    cents = (full[rng.choice(len(full), 256, replace=False)]
+             + 0.05 * rng.standard_normal((256, 32))).astype(np.float32)
+    books = (0.05 * rng.standard_normal((16, 256, 2))).astype(np.float32)
+
+    def train_jax(self, data, **_):
+        self.centroids, self.codebooks = jnp.asarray(cents), jnp.asarray(books)
+        self._trained = True
+
+    def train_torch(self, data, **_):
+        self.centroids = torch.from_numpy(cents).to(self.device)
+        self.codebooks = torch.from_numpy(books).to(self.device)
+        self._trained = True
+    monkeypatch.setattr(JI.IVFPQIndex, "train", train_jax)
+    monkeypatch.setattr(PI.IVFPQIndex, "train", train_torch)
+    monkeypatch.setattr(JI.IVFPQIndex, "CHUNK_ROWS", 8192)
+    monkeypatch.setattr(PI.IVFPQIndex, "CHUNK_ROWS", 8192)
+
+    dirs = {}
+    for tag in ("jax", "torch"):
+        dirs[tag] = str(tmp_path / tag)
+        shutil.copytree(memmaps, dirs[tag])
+    kw = dict(test_ids="all", test_seq_len="1 3 5")
+    if index_type:
+        kw["index_type"] = index_type
+    jr = JE.eval_fingerprints(dirs["jax"], **kw)
+    pr = PE.eval_fingerprints(dirs["torch"], device=CPU, **kw)
+    np.testing.assert_array_equal(pr, jr)
+    for name in ("raw_score.npy", "test_ids.npy"):
+        a = np.load(os.path.join(dirs["torch"], name))
+        b = np.load(os.path.join(dirs["jax"], name))
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    raw = np.load(os.path.join(dirs["torch"], "raw_score.npy"))
+    assert raw.shape == (155, 12) and 0 < raw.mean() < 1  # neither trivial
+    with open(os.path.join(dirs["torch"], "eval_summary.json")) as f:
+        summary = json.load(f)
+    assert summary["index_type"] == (index_type or "ivfpq")
+    assert summary["nprobe"] == 40

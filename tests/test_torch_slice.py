@@ -127,12 +127,15 @@ def test_evaluate_raw_score_identical(slice_run, index_type):
                                        "eval_summary.json"))
 
 
-@pytest.mark.parametrize("verb", ["generate", "evaluate"])
+@pytest.mark.parametrize("verb", ["generate", "evaluate",
+                                  "evaluate-default"])
 def test_cli_without_nogpu_needs_a_card(slice_run, verb):
+    """Without --nogpu and without a card every command (evaluate with the
+    default -i ivfpq too) stops with "no CUDA device"."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from nafp_tpu_torch.cli import main
-    args = [verb, NAME, str(INDEX), "-c", slice_run["cfg_path"]]
+    args = [verb.split("-")[0], NAME, str(INDEX), "-c", slice_run["cfg_path"]]
     if verb == "evaluate":
         args += ["-i", "l2"]
     res = CliRunner().invoke(main, args)
@@ -143,7 +146,7 @@ def test_cli_without_nogpu_needs_a_card(slice_run, verb):
 def test_cli_train_not_ported():
     from nafp_tpu_torch.cli import main
     res = CliRunner().invoke(main, ["train", "x", "-c", "default"])
-    assert res.exit_code != 0 and "slice 2" in res.output
+    assert res.exit_code != 0 and "training slice" in res.output
 
 
 def test_max_ir_length_matches_jax():

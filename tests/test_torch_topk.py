@@ -1,17 +1,25 @@
-"""Kernels B1 and B2: the plain PyTorch versions against the JAX package's
-Pallas kernels in interpret mode (CPU), the wrappers' CPU route and
-argument checks, and, marked ``gpu``, each CUDA kernel against its plain
-version on the card (skipped without one)."""
+"""Kernels B1, B2 and B3: the plain PyTorch versions against the JAX
+package's Pallas kernels in interpret mode (CPU), the wrappers' CPU route
+and argument checks, and, marked ``gpu``, each CUDA kernel against its
+plain version on the card (skipped without one)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from nafp_tpu.search.pallas_topk import topk_ip_pallas, topk_ip_sq8_pallas
+from nafp_tpu.search.index import _pq_score_chunk_xla
+from nafp_tpu.search.pallas_topk import (topk_ip_pallas,
+                                         topk_ip_pallas_masked,
+                                         topk_ip_sq8_pallas)
 from nafp_tpu_torch.search import topk as T
 
 NEG = -1e30
 ATOL = 1e-4   # scores, as tests/test_pallas_topk.py holds the TPU kernel
+# B3 over a bf16 DB with bf16-rounded queries on both sides: the same
+# products of bf16 values summed in f32 in other orders (XLA's interpret
+# mode vs PyTorch); measured max |diff| 4.8e-7 over these cases at d 16-32
+# with seeds 0-3.
+BF16_ATOL = 1e-5
 
 
 def _rand(rng, shape):
@@ -130,7 +138,101 @@ def test_launch_counters_untouched_on_cpu(rng):
     """The CPU route is the plain version: no kernel launch is counted."""
     T.reset_launches()
     T.topk_ip(torch.zeros(2, 8), torch.ones(10, 8), 3)
-    assert T.LAUNCHES == {"topk_ip": 0, "topk_ip_sq8": 0}
+    T.topk_ip_masked(torch.zeros(2, 8),
+                     torch.ones(128, 8, dtype=torch.bfloat16),
+                     torch.arange(128, dtype=torch.int32),
+                     torch.zeros(2, 2), 3, list_tile=64)
+    assert T.LAUNCHES == {"topk_ip": 0, "topk_ip_sq8": 0,
+                          "topk_ip_masked": 0}
+
+
+def _masked_case(rng, bq, n, d, lt, case):
+    """q, db (f32), ids (a permutation, -1 on masked rows) and the (Bq,
+    N/lt) 0/NEG bias of one B3 case."""
+    q, db = _rand(rng, (bq, d)), _rand(rng, (n, d))
+    ids = rng.permutation(n).astype(np.int32)
+    ids[rng.integers(0, n, n // 8)] = -1                  # interior invalid
+    bias = np.where(rng.random((bq, n // lt)) < 0.5, 0.0, NEG).astype(
+        np.float32)                                       # half masked
+    if case == "unprobed_query":
+        bias[0] = NEG
+    if case == "k_gt_valid":
+        ids[10:] = -1
+    return q, db, ids, bias
+
+
+MASKED_CASES = [
+    # bq, n, d, blk, list_tile, k, case
+    (8, 512, 32, 128, 64, 8, "interior"),
+    (8, 512, 32, 256, 128, 8, "interior"),
+    (4, 256, 16, 128, 64, 20, "unprobed_query"),
+    (3, 256, 16, 128, 128, 40, "k_gt_valid"),
+    (1, 256, 16, 128, 64, 5, "interior"),                 # Bq 1
+]
+
+
+@pytest.mark.parametrize("db_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bq,n,d,blk,lt,k,case", MASKED_CASES)
+def test_b3_plain_matches_pallas(rng, bq, n, d, blk, lt, k, case, db_dtype):
+    """Plain B3 against topk_ip_pallas_masked in interpret mode: identical
+    ids (mapped through the ids), -1 on masked and empty slots, scores on
+    the valid slots within ATOL (f32 DB) or BF16_ATOL (bf16 DB; both sides
+    then round q to bf16, as the TPU and the CUDA kernel do)."""
+    q, db, ids, bias = _masked_case(rng, bq, n, d, lt, case)
+    jdt, tdt = ((jnp.float32, torch.float32) if db_dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want_v, want_i = topk_ip_pallas_masked(
+        jnp.asarray(q), jnp.asarray(db).astype(jdt), jnp.asarray(ids),
+        jnp.asarray(bias), k=k, blk=blk, list_tile=lt, interpret=True)
+    want_v, want_i = np.asarray(want_v), np.asarray(want_i)
+    got_v, got_i = T.topk_ip_masked_plain(
+        torch.from_numpy(q), torch.from_numpy(db).to(tdt),
+        torch.from_numpy(ids), torch.from_numpy(bias), k, lt,
+        compute_dtype=tdt)
+    got_v, got_i = got_v.numpy(), got_i.numpy()
+    assert got_i.dtype == np.int32 and got_v.shape == (bq, k)
+    np.testing.assert_array_equal(got_i, want_i)
+    valid = want_i >= 0
+    np.testing.assert_allclose(got_v[valid], want_v[valid], rtol=0,
+                               atol=ATOL if db_dtype == "f32" else BF16_ATOL)
+    assert not np.isin(got_i[valid], ids[ids < 0]).any()
+    if case == "unprobed_query":
+        assert (got_i[0] == -1).all() and valid[1:].any()
+    if case == "k_gt_valid":
+        assert (got_i[:, 10:] == -1).all()
+    for row_v, row_ok in zip(got_v, valid):
+        assert (np.diff(row_v[row_ok]) <= 0).all()
+
+
+@pytest.mark.parametrize("case", ["interior", "k_gt_valid"])
+def test_b3_wrapper_matches_pq_score_chunk_xla(rng, case):
+    """The wrapper's CPU route (plain B3, f32 q) against the JAX package's
+    off-TPU IVF-PQ scorer on a bf16 chunk: identical ids, f32 scores
+    within ATOL on the valid slots."""
+    q, db, ids, bias = _masked_case(rng, 16, 1024, 32, 128, case)
+    dec = torch.from_numpy(db).to(torch.bfloat16)
+    want_v, want_i = _pq_score_chunk_xla(
+        jnp.asarray(q), jnp.asarray(db).astype(jnp.bfloat16),
+        jnp.asarray(ids), jnp.asarray(bias), k=20, lt=128)
+    got_v, got_i = T.topk_ip_masked(torch.from_numpy(q), dec,
+                                    torch.from_numpy(ids),
+                                    torch.from_numpy(bias), 20, 128)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    valid = np.asarray(want_i) >= 0
+    np.testing.assert_allclose(got_v.numpy()[valid],
+                               np.asarray(want_v)[valid], rtol=0, atol=ATOL)
+
+
+def test_b3_wrapper_rejects_bad_arguments():
+    q = torch.zeros(2, 8)
+    db = torch.zeros(256, 8, dtype=torch.bfloat16)
+    ids = torch.arange(256, dtype=torch.int32)
+    with pytest.raises(ValueError, match="k=129"):
+        T.topk_ip_masked(q, db, ids, torch.zeros(2, 2), 129, 128)
+    with pytest.raises(ValueError, match="list_tile=32"):
+        T.topk_ip_masked(q, db, ids, torch.zeros(2, 8), 4, 32)
+    with pytest.raises(ValueError, match="bias"):
+        T.topk_ip_masked(q, db, ids, torch.zeros(2, 3), 4, 128)
 
 
 @pytest.mark.gpu
@@ -162,4 +264,18 @@ def test_kernels_match_plain_on_gpu():
     qb = q.to(torch.bfloat16).double().cpu().numpy()
     sim = (qb @ q8.T.astype(np.float64)) * sc + rmask
     _check_same(v.cpu(), i.cpu(), pv.cpu(), pi.cpu(), sim)
-    assert T.LAUNCHES == {"topk_ip": 3, "topk_ip_sq8": 1}
+    for bq, k, case in [(128, 20, "interior"), (1, 80, "unprobed_query"),
+                        (5, 40, "k_gt_valid")]:
+        qn, dbn, idn, bn = _masked_case(rng, bq, 16_384, 128, 128, case)
+        args = [torch.from_numpy(a).to(dev) for a in (qn, dbn, idn, bn)]
+        args[1] = args[1].to(torch.bfloat16)
+        v, i = T.topk_ip_masked(*args, k, 128)
+        pv, pi = T.topk_ip_masked_plain(*args, k, 128,
+                                        compute_dtype=torch.bfloat16)
+        # identical ids; bf16 products summed in f32 in another order
+        np.testing.assert_array_equal(i.cpu().numpy(), pi.cpu().numpy())
+        ok = pi >= 0
+        np.testing.assert_allclose(v[ok].cpu().numpy(), pv[ok].cpu().numpy(),
+                                   rtol=0, atol=ATOL)
+    assert T.LAUNCHES == {"topk_ip": 3, "topk_ip_sq8": 1,
+                          "topk_ip_masked": 3}
