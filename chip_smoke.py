@@ -8,11 +8,14 @@ the kernels are compiled for sm_90a). It builds the CUDA kernels from the
 sources in ``nafp_tpu_torch/csrc/``, then:
 
 1. device: the card's name, count and power limit, the kernel build time;
-2. kernels B1 (``topk_ip``), B2 (``topk_ip_sq8``) and B3
-   (``topk_ip_masked``) against their plain PyTorch versions at the main
-   path's shapes and edge cases, timed with CUDA events beside their bound
-   and a one-call PyTorch yardstick (matmul + topk, which the port never
-   calls);
+2. kernels B1 (``topk_ip``), B2 (``topk_ip_sq8``), B3 (``topk_ip_masked``),
+   B4a (``run_variant``: v3, v2 and int8) and B4b (``run_dotonly``) against
+   their plain PyTorch versions at the main path's shapes and edge cases,
+   timed with CUDA events beside their bound and a one-call PyTorch
+   yardstick (matmul + topk, which the port never calls); B4a and B4b also
+   at B2's shape beside B2, and v2 against B2 at k 80; B4b once more held
+   to B2's resident CTAs per SM at k 20 and k 80 (B2's shared memory per
+   CTA), with each launch's shared memory, CTAs per SM, registers and grid;
 3. the serving path through the CLI at full model width (random weights
    from a seed, written in the Flax layout as ``params.npz``): a seeded
    synthetic corpus -> ``generate`` -> a 619,500-row DB (the 10k-song
@@ -23,7 +26,13 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    searches on the probe-pruned route timed against the linear scan, and
    B1/B3 timed on the protocol's own query fingerprints against random
    queries;
-4. the encoder on the card against the port on the CPU (f32), bf16
+4. the sq8 kernel bench (``python -m nafp_tpu_torch.extras.
+   bench_sq8_kernel``, called through its ``main``) at its default shape,
+   N 8,388,608 x 128 int8, Bq 512, k 20, with the launch counters zeroed
+   just before and read just after; then B2 (the bench's v0), B4a and B4b
+   on the same data against their plain versions, with the plain versions'
+   and the yardsticks' times, and B4b at B2's residency;
+5. the encoder on the card against the port on the CPU (f32), bf16
    against f32 on the card, ``evaluate -i l2`` on the card against the
    same protocol on the CPU (a reduced id set), and the persisted IVF-PQ
    store searched on the card and on the CPU.
@@ -51,10 +60,25 @@ SQ8_ROWS = 620_544           # the same DB padded to the sq8 store's 2048
 K = 20                       # k_probe of the protocol
 N_QUERY, N_DUMMY, SONG_SEC = 100, 200, 30   # synthetic corpus: 23,600 segs
 N_TEST = 2000                # test ids of the protocol run
-# H100 SXM published peaks (dense): f32 on the CUDA cores, bf16 tensor
-# cores, HBM3 bandwidth.
-PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# H100 SXM published peaks (dense): f32 on the CUDA cores, bf16 and int8
+# tensor cores, HBM3 bandwidth.
+PEAK_F32, PEAK_BF16, PEAK_INT8, PEAK_BYTES = 67e12, 989e12, 1979e12, 3.35e12
 SCORE_ATOL = 1e-4            # scores vs plain (tests/test_pallas_topk.py)
+# B4b's unscaled sums (|sum| up to ~300; the row scale ~1/127 makes them
+# scores): exact bf16 x int8 products summed in f32 in another order
+RAW_ATOL = 1e-3
+# the sq8 kernel bench's default shape (nafp_tpu_torch/extras/
+# bench_sq8_kernel.py), and the row blocks its one-call yardsticks take
+# (a (512, 8,388,608) f32 score matrix is 17 GB)
+BENCH_N, BENCH_BQ, BENCH_BLK = 8_388_608, 512, 2048
+LIB_ROWS = 1 << 20
+# B4a's variants as the kernels line names them: merge v3 (B2's insertion),
+# v2 (the drain) and int8 products (insertion)
+B4A = {"v3": dict(merge_mode="v3"), "v2": dict(merge_mode="v2"),
+       "int8": dict(merge_mode="v3", int8_dot=True)}
+# int8 queries may flip the top-1 of near-tied rows; the bench's queries sit
+# 0.05 away from a picked row, so its top-1 holds
+BENCH_INT8_TOP1_MIN = 0.99
 ENCODER_ATOL = 1e-4          # f32 card vs f32 CPU, unit-norm embeddings
 BF16_COS_MIN = 0.98          # bf16 vs f32 on the card (tests/test_nnfp.py)
 # top-1 hits of the int8 scan against the f32 scan (int8 rounding flips only
@@ -249,10 +273,185 @@ def phase_kernels(dev):
         shape="Bq 1024, N 620544, d 128, k 20")
     log(f"  B2 @ Bq 1024: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"bf16 matmul+topk {lib_ms:.3f} ms, bound {bound:.3f} ms")
-    del vecs8, scales, rmask, v16
+    del v16
+    rec["b4"] = phase_kernel_b4(dev, gen, vecs8, scales, rmask)
+    del vecs8, scales, rmask
 
     rec["topk_ip_masked"] = phase_kernel_b3(dev, gen)
     return rec
+
+
+def b4a_score_at(q, v8, sc, rm, int8_dot):
+    """score_at for check_topk: B4a's scores recomputed in f64 at given
+    ids, from the bf16-rounded queries or the int8 ones and their scale."""
+    import torch
+    from nafp_tpu_torch.extras import bench_sq8_kernel as B
+    if int8_dot:
+        q8, qs = B.quantize_queries(q)
+        qd, qscale = q8.double(), qs.double()[:, None]
+    else:
+        qd, qscale = q.to(torch.bfloat16).double(), 1.0
+    return lambda ids: (torch.einsum("bd,bkd->bk", qd, v8.double()[ids])
+                        * sc.double()[ids] + rm.double()[ids]) * qscale
+
+
+def check_b4a(tag, name, q, v8, sc, rm, k, blk=2048):
+    """Kernel B4a's variant ``name`` against its plain version with bf16
+    queries (the kernel's numerics); a masked row returned fails."""
+    import torch
+    from nafp_tpu_torch.extras import bench_sq8_kernel as B
+    int8_dot = B4A[name].get("int8_dot", False)
+    v, i = B.run_variant(q, v8, sc, rm, k=k, blk=blk, **B4A[name])
+    pv, pi = B.run_variant_plain(q, v8, sc, rm, k, int8_dot=int8_dot,
+                                 compute_dtype=torch.bfloat16)
+    if bool(((rm[i.clamp(min=0).long()] < 0) & (i >= 0)).any()):
+        raise AssertionError(f"{tag}: a masked row was returned")
+    return check_topk(tag, v, i, pv, pi,
+                      b4a_score_at(q, v8, sc, rm, int8_dot))
+
+
+def check_b4b(tag, q, v8, blk):
+    """Kernel B4b's per-block maxima against its plain version (bf16 q),
+    and its default result, the last block's column."""
+    import torch
+    from nafp_tpu_torch.extras import bench_sq8_kernel as B
+    none = torch.empty(0, device=q.device)
+    got = B.run_dotonly(q, v8, none, none, blk=blk, all_blocks=True)
+    want = B.run_dotonly_plain(q, v8, blk)
+    err = (got - want).abs().max().item()
+    if not err <= RAW_ATOL:
+        raise AssertionError(f"{tag}: |kernel - plain| {err} > {RAW_ATOL}")
+    if not torch.equal(B.run_dotonly(q, v8, none, none, blk=blk),
+                       got[:, -1:]):
+        raise AssertionError(f"{tag}: the last block's column differs")
+    log(f"  {tag}: max|kernel-plain| {err:.3e} over {got.numel()} block "
+        "maxima")
+    return err
+
+
+def occupancy(lib, fn_name, *args, n_out):
+    """The ints a kernel library's occupancy query ``fn_name(*args, info)``
+    writes into info[0 .. n_out-1]."""
+    import ctypes
+    from nafp_tpu_torch import kernels
+    fn = getattr(kernels.load(lib), fn_name)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * n_out)()
+    err = fn(*args, info)
+    if err:
+        raise RuntimeError(f"{fn_name}{args}: CUDA error {err}")
+    return list(info)
+
+
+def b2_and_floor_residency(dev, bq, n, k):
+    """B2's scan at (bq, n, k) and B4b (blk 2048) held to B2's shared memory
+    per CTA: {"b2": ..., "b4b_at_b2": ...}, each with the shared memory per
+    CTA in bytes, resident CTAs per SM, registers per thread and CTAs in the
+    grid."""
+    from nafp_tpu_torch.search import topk as T
+    smem, per_sm, regs = occupancy("topk_sq8", "nafp_topk_sq8_occupancy",
+                                   128, k, n_out=3)
+    n_chunks = T._grid(bq, n, dev)[1]
+    b4b = occupancy("bench_dotonly", "nafp_bench_dotonly_occupancy", bq, n,
+                    128, 2048, smem, n_out=4)
+    keys = ("smem", "ctas_per_sm", "regs", "grid")
+    return {"b2": dict(zip(keys, (smem, per_sm, regs,
+                                  n_chunks * -(-bq // T.QB)))),
+            "b4b_at_b2": dict(zip(keys, b4b))}
+
+
+def phase_kernel_b4(dev, gen, vecs8, scales, rmask):
+    """B4a (v3, v2, int8) and B4b on B2's store (the main path's sq8 shape,
+    1 % tombstones) against their plain versions, with edge cases; then
+    timed beside B2 at B2's main shape (Bq 1024, k 20), and v2 against B2
+    at k 80. B4b is timed twice: as it launches itself, and held to B2's
+    resident CTAs per SM at k 20 and at k 80 (the shared memory B2's
+    k-lists and candidates take), with each launch's residency logged."""
+    import torch
+    from nafp_tpu_torch.extras import bench_sq8_kernel as B
+    from nafp_tpu_torch.search import topk as T
+
+    errs = {name: [] for name in (*B4A, "dotonly")}
+    for bq in (128, 512):
+        q = unit_rows(bq, 128, gen, dev)
+        for name in B4A:
+            errs[name].append(check_b4a(
+                f"B4a {name} Bq={bq} N={SQ8_ROWS} (1% tombstones)", name, q,
+                vecs8, scales, rmask, K))
+    errs["v2"].append(check_b4a("B4a v2 Bq=512 k=80", "v2",
+                                unit_rows(512, 128, gen, dev), vecs8, scales,
+                                rmask, 4 * K))
+    q1 = unit_rows(1, 128, gen, dev)
+    for name in B4A:
+        errs[name].append(check_b4a(f"B4a {name} Bq=1", name, q1, vecs8,
+                                    scales, rmask, K))
+    # all-negative scores and k larger than the valid rows: 30 valid of 256
+    small8, small_sc = quantize(unit_rows(256, 128, gen, dev).abs())
+    small_rm = torch.full((256,), T.NEG, device=dev)
+    small_rm[torch.randperm(256, generator=gen, device=dev)[:30]] = 0.0
+    small_sc = torch.where(small_rm < 0, 0.0, small_sc).contiguous()
+    neg_q = -unit_rows(5, 128, gen, dev).abs()
+    for name in B4A:
+        errs[name].append(check_b4a(
+            f"B4a {name} all-negative, k 48 > 30 valid rows", name, neg_q,
+            small8, small_sc, small_rm.contiguous(), 48, blk=128))
+    for bq in (512, 1):
+        errs["dotonly"].append(check_b4b(
+            f"B4b Bq={bq} N={SQ8_ROWS} blk 2048", unit_rows(bq, 128, gen, dev),
+            vecs8, 2048))
+
+    # B2's main shape, in turns with B2
+    q = unit_rows(1024, 128, gen, dev)
+    ms = {"b2": time_ms(lambda: T.topk_ip_sq8(q, vecs8, scales, rmask, K),
+                        20)}
+    for name, kw in B4A.items():
+        ms[name] = time_ms(lambda: B.run_variant(q, vecs8, scales, rmask,
+                                                 k=K, **kw), 20)
+    ms["dotonly"] = time_ms(lambda: B.run_dotonly(q, vecs8, scales, rmask),
+                            20)
+    ms["b2_again"] = time_ms(lambda: T.topk_ip_sq8(q, vecs8, scales, rmask,
+                                                   K), 20)
+    ms["b2_k80"] = time_ms(lambda: T.topk_ip_sq8(q, vecs8, scales, rmask,
+                                                 4 * K), 10)
+    ms["v2_k80"] = time_ms(lambda: B.run_variant(
+        q, vecs8, scales, rmask, k=4 * K, merge_mode="v2"), 10)
+    res = {"b4b": dict(zip(("smem", "ctas_per_sm", "regs", "grid"),
+                           occupancy("bench_dotonly",
+                                     "nafp_bench_dotonly_occupancy", 1024,
+                                     SQ8_ROWS, 128, 2048, 0, n_out=4)))}
+    own = B.dotonly_blocks(q, vecs8)
+    for k in (K, 4 * K):
+        occ = b2_and_floor_residency(dev, 1024, SQ8_ROWS, k)
+        res[f"b2_k{k}"], res[f"b4b_at_b2_k{k}"] = occ["b2"], occ["b4b_at_b2"]
+        if not torch.equal(B.dotonly_blocks(
+                q, vecs8, smem_min=occ["b2"]["smem"]), own):
+            raise AssertionError(f"B4b at B2's k {k} residency: other maxima")
+        ms[f"dotonly_at_b2_k{k}"] = time_ms(lambda: B.dotonly_blocks(
+            q, vecs8, smem_min=occ["b2"]["smem"]), 20)
+    del own
+    b2, b2_80 = min(ms["b2"], ms["b2_again"]), ms["b2_k80"]
+    floor_20, floor_80 = (ms[f"dotonly_at_b2_k{k}"] for k in (K, 4 * K))
+    share = {"k20": (b2 - ms["dotonly"]) / b2,
+             "k80": (b2_80 - ms["dotonly"]) / b2_80,
+             "k20_at_b2_residency": (b2 - floor_20) / b2,
+             "k80_at_b2_residency": (b2_80 - floor_80) / b2_80}
+    log(f"  B2 shape (Bq 1024, N {SQ8_ROWS}): B2 {ms['b2']:.3f} / "
+        f"{ms['b2_again']:.3f} ms, B4a v3 {ms['v3']:.3f}, v2 {ms['v2']:.3f}, "
+        f"int8 {ms['int8']:.3f}, B4b {ms['dotonly']:.3f} ms; k 80: B2 "
+        f"{ms['b2_k80']:.3f}, v2 {ms['v2_k80']:.3f} ms")
+    log(f"  B4b at B2's residency: {floor_20:.3f} ms (k {K}'s shared "
+        f"memory), {floor_80:.3f} ms (k {4 * K}'s)")
+    for name, r in res.items():
+        log(f"    residency {name}: {r['smem']} B shared memory per CTA, "
+            f"{r['ctas_per_sm']} CTAs per SM, {r['regs']} registers, "
+            f"{r['grid']} CTAs in the grid")
+    log(f"  selection share of B2, (B2 - B4b) / B2: {share['k20']:.3f} at "
+        f"k {K}, {share['k80']:.3f} at k {4 * K}; with B4b at B2's "
+        f"residency: {share['k20_at_b2_residency']:.3f}, "
+        f"{share['k80_at_b2_residency']:.3f}")
+    return dict(max_abs_err={n: max(e) for n, e in errs.items()},
+                main_shape_ms=ms, selection_share=share, residency=res)
 
 
 def synthetic_pq_layout(n_rows, gen_np):
@@ -739,7 +938,147 @@ def profile_call(fn, tag: str, top: int = 6):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: card against CPU
+# Phase 4: the sq8 kernel bench (kernels B4a and B4b)
+# ---------------------------------------------------------------------------
+def lib_sq8_topk(q, v, sc, rm, k, int8_dot):
+    """One-call yardstick of B4a, taken in LIB_ROWS-row blocks: a bf16
+    ``matmul`` (int8: ``torch._int_mm`` of the quantised queries) + scale +
+    mask + ``topk`` per block, then ``topk`` of the blocks' results."""
+    import torch
+    from nafp_tpu_torch.extras import bench_sq8_kernel as B
+    if int8_dot:
+        q8, qs = B.quantize_queries(q)
+    vals, ids = [], []
+    for r0 in range(0, v.shape[0], LIB_ROWS):
+        rows = v[r0:r0 + LIB_ROWS].T
+        raw = (torch._int_mm(q8, rows) if int8_dot
+               else torch.matmul(q, rows))
+        s = raw.float() * sc[r0:r0 + LIB_ROWS] + rm[r0:r0 + LIB_ROWS]
+        bv, bi = torch.topk(s, k, dim=1)
+        vals.append(bv)
+        ids.append(bi + r0)
+    bv, j = torch.topk(torch.cat(vals, 1), k, dim=1)
+    return (bv * qs[:, None] if int8_dot else bv), torch.cat(ids, 1).gather(
+        1, j)
+
+
+def lib_block_max(q16, v16, blk):
+    """One-call yardstick of B4b in LIB_ROWS-row blocks: bf16 ``matmul`` +
+    ``amax`` over each blk-row block."""
+    import torch
+    bq = q16.shape[0]
+    return torch.cat([torch.matmul(q16, v16[r0:r0 + LIB_ROWS].T).view(
+        bq, -1, blk).amax(dim=2) for r0 in range(0, v16.shape[0], LIB_ROWS)],
+        dim=1)
+
+
+def phase_bench(dev, b4_main):
+    """The port's sq8 kernel bench through its entry point at its default
+    shape (N 8,388,608 x 128 int8, Bq 512, k 20, blk 2048), the launch
+    counters zeroed just before and read just after; then, on the same data
+    (seed 0), B4a and B4b against their plain versions, the plain versions'
+    and the one-call yardsticks' times, and each kernel's bound."""
+    import torch
+    from nafp_tpu_torch.extras import bench_sq8_kernel as B
+    from nafp_tpu_torch.search import topk as T
+
+    B.reset_launches()
+    T.reset_launches()
+    t0 = time.perf_counter()
+    res = B.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(B.LAUNCHES, topk_ip_sq8=T.LAUNCHES["topk_ip_sq8"])
+    log(f"  bench: {wall:.1f} s, launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the bench left a kernel unlaunched: {launches}")
+    for name in ("v3", "v2"):
+        if not (res[name]["ids_agree"] == 1.0 and res[name]["top1"] == 1.0):
+            raise AssertionError(f"bench {name}: ids differ from v0: "
+                                 f"{res[name]}")
+    if not res["int8"]["top1"] >= BENCH_INT8_TOP1_MIN:
+        raise AssertionError(f"bench int8: top-1 {res['int8']['top1']}")
+
+    n, bq, blk = BENCH_N, BENCH_BQ, BENCH_BLK
+    q, vecs8, scales, rmask = B.make_data(n, bq, dev)
+    q16, v16 = q.to(torch.bfloat16), vecs8.to(torch.bfloat16)
+    flops = 2.0 * bq * n * 128
+    sq8_bytes = n * 128 + 8.0 * n + 4.0 * bq * 128 + 8.0 * bq * K
+    # the bench's v0 is kernel B2 (topk_ip_sq8) at this shape
+    v, i = T.topk_ip_sq8(q, vecs8, scales, rmask, K)
+    pv, pi = T.topk_ip_sq8_plain(q, vecs8, scales, rmask, K,
+                                 compute_dtype=torch.bfloat16)
+    v0_err = check_topk("B2 (the bench's v0) @ bench shape", v, i, pv, pi,
+                        b4a_score_at(q, vecs8, scales, rmask, False))
+    del v, i, pv, pi
+    variants = {}
+    for name, kw in B4A.items():
+        int8_dot = kw.get("int8_dot", False)
+        tag = f"B4a {name} @ bench shape"
+        v, i = B.run_variant(q, vecs8, scales, rmask, k=K, **kw)
+        pv, pi = B.run_variant_plain(q, vecs8, scales, rmask, K,
+                                     int8_dot=int8_dot,
+                                     compute_dtype=torch.bfloat16)
+        err = check_topk(tag, v, i, pv, pi,
+                         b4a_score_at(q, vecs8, scales, rmask, int8_dot))
+        del v, i, pv, pi
+        plain_ms = time_ms(lambda: B.run_variant_plain(
+            q, vecs8, scales, rmask, K, int8_dot=int8_dot,
+            compute_dtype=torch.bfloat16), 2, warmup=1)
+        if not int8_dot:
+            lib_ms = time_ms(lambda: lib_sq8_topk(q16, v16, scales, rmask,
+                                                  K, False), 3, warmup=1)
+        elif bq > 16 and q.shape[1] % 8 == 0 and LIB_ROWS % 8 == 0:
+            # torch._int_mm's shape rule on CUDA: (m, k) x (k, n) int8 with
+            # m > 16 and k, n multiples of 8
+            lib_ms = time_ms(lambda: lib_sq8_topk(
+                q, vecs8, scales, rmask, K, True), 3, warmup=1)
+        else:
+            lib_ms = "not measured (torch._int_mm takes m > 16, k % 8 == 0)"
+        peak = PEAK_INT8 if int8_dot else PEAK_BF16
+        bound = max(flops / peak, sq8_bytes / PEAK_BYTES) * 1e3
+        variants[name] = dict(
+            ms=res[name]["ms"], plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound, bound_by="operations"
+            if flops / peak >= sq8_bytes / PEAK_BYTES else "bytes",
+            max_abs_err=max(err, b4_main["max_abs_err"][name]))
+        lib = lib_ms if isinstance(lib_ms, str) else f"{lib_ms:.3f} ms"
+        log(f"  {tag}: kernel {res[name]['ms']:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, yardstick {lib}, bound {bound:.3f} ms")
+    err = check_b4b("B4b @ bench shape", q, vecs8, blk)
+    plain_ms = time_ms(lambda: B.run_dotonly_plain(q, vecs8, blk), 2,
+                       warmup=1)
+    lib_ms = time_ms(lambda: lib_block_max(q16, v16, blk), 3, warmup=1)
+    dot_bytes = n * 128 + 4.0 * bq * 128 + 4.0 * bq * (n // blk)
+    bound = max(flops / PEAK_BF16, dot_bytes / PEAK_BYTES) * 1e3
+    dotonly = dict(ms=res["dotonly"]["ms"], plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound,
+                   bound_by="operations" if flops / PEAK_BF16
+                   >= dot_bytes / PEAK_BYTES else "bytes",
+                   max_abs_err=max(err, b4_main["max_abs_err"]["dotonly"]))
+    log(f"  B4b @ bench shape: kernel {dotonly['ms']:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bf16 matmul+amax {lib_ms:.3f} ms, bound "
+        f"{bound:.3f} ms")
+    residency = b2_and_floor_residency(dev, bq, n, K)
+    floor_ms = time_ms(lambda: B.dotonly_blocks(
+        q, vecs8, blk, smem_min=residency["b2"]["smem"]), 3, warmup=1)
+    v0 = res["v0"]["ms"]
+    share = {"k20": (v0 - res["dotonly"]["ms"]) / v0,
+             "k20_at_b2_residency": (v0 - floor_ms) / v0}
+    log(f"  B4b at B2's residency @ bench shape: {floor_ms:.3f} ms; "
+        f"residency {residency}")
+    log(f"  selection share of B2 at the bench shape, (v0 - dotonly) / v0: "
+        f"{share['k20']:.3f}; with B4b at B2's residency "
+        f"{share['k20_at_b2_residency']:.3f}")
+    del q16, v16, vecs8
+    return dict(results=res, wall_s=wall, launches=launches,
+                variants=variants, dotonly=dotonly, v0_max_abs_err=v0_err,
+                selection_share=share, floor_at_b2_residency_ms=floor_ms,
+                residency=residency)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: card against CPU
 # ---------------------------------------------------------------------------
 def phase_card_vs_cpu(dev, main_path, ivfpq):
     import copy
@@ -838,7 +1177,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = resolve_device()
     smi = nvidia_smi_line()
-    log(f"[1/4] device: {torch.cuda.get_device_name(0)} x "
+    log(f"[1/5] device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     build_s, logs = kernels.build_all()
@@ -859,12 +1198,14 @@ def main() -> int:
         log(f"  ({name} took {phase_s[name]:.1f} s)")
         return out
 
-    log("[2/4] kernels against their plain versions")
+    log("[2/5] kernels against their plain versions")
     rec = timed("kernels", phase_kernels, dev)
-    log("[3/4] serving path through the CLI (full width)")
+    log("[3/5] serving path through the CLI (full width)")
     main_path = timed("main path", phase_main_path, dev)
     ivfpq = timed("IVF-PQ store", phase_ivfpq_store, dev, main_path)
-    log("[4/4] card against CPU")
+    log("[4/5] the sq8 kernel bench (B4a, B4b)")
+    bench = timed("sq8 kernel bench", phase_bench, dev, rec["b4"])
+    log("[5/5] card against CPU")
     enc = timed("card vs CPU", phase_card_vs_cpu, dev, main_path, ivfpq)
 
     kernels_line = []
@@ -874,12 +1215,36 @@ def main() -> int:
         r["launches_by_run"] = {
             run: n[name] for run, n in main_path["launches_by_run"].items()
             if n[name]}
-        r["max_err"] = r["max_abs_err"]
         kernels_line.append(r)
+    kernels_line[1].update(launches_bench=bench["launches"]["topk_ip_sq8"],
+                           ms_bench=bench["results"]["v0"]["ms"],
+                           max_abs_err_bench=bench["v0_max_abs_err"])
+    shape = (f"Bq {BENCH_BQ}, N {BENCH_N}, d 128, k {K}, blk {BENCH_BLK} "
+             "(the bench's default)")
+    kernels_line.append(dict(
+        name="run_variant (B4a)", route="cuda",
+        source="nafp_tpu_torch/csrc/bench_variant.cu",
+        replaces="extras/bench_sq8_kernel.py:154 (run_variant)",
+        variant="v2", **bench["variants"]["v2"],
+        launches=bench["launches"]["run_variant"], shape=shape,
+        variants=bench["variants"],
+        main_shape_ms=rec["b4"]["main_shape_ms"],
+        selection_share_of_b2=rec["b4"]["selection_share"]))
+    kernels_line.append(dict(
+        name="run_dotonly (B4b)", route="cuda",
+        source="nafp_tpu_torch/csrc/bench_dotonly.cu",
+        replaces="extras/bench_sq8_kernel.py:201 (run_dotonly)",
+        **bench["dotonly"], launches=bench["launches"]["run_dotonly"],
+        shape=shape, selection_share_of_b2_bench=bench["selection_share"],
+        floor_at_b2_residency_ms_bench=bench["floor_at_b2_residency_ms"],
+        residency_bench=bench["residency"], residency=rec["b4"]["residency"]))
+    for r in kernels_line:
+        r["max_err"] = r["max_abs_err"]
     summary = {k: v for k, v in main_path.items()
                if k not in ("cfg", "variables", "cfg_path", "dummy_dir",
                             "emb_dir")}
     summary.update(enc, data_dependence=ivfpq["data_dependence"],
+                   bench=bench["results"],
                    prune_ms=ivfpq["prune_ms"],
                    ivfpq_store_n_pad=ivfpq["n_pad"], phase_s=phase_s,
                    total_s=time.perf_counter() - t_start)

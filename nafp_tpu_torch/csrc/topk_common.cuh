@@ -1,6 +1,7 @@
 // Exact top-k of q . DB^T on Hopper: the scan and merge kernels shared by
-// topk_f32.cu (kernel B1), topk_sq8.cu (kernel B2) and topk_masked.cu
-// (kernel B3).
+// topk_f32.cu (kernel B1), topk_sq8.cu (kernel B2), topk_masked.cu (kernel
+// B3) and bench_variant.cu (kernel B4a), and the staging and product steps
+// that bench_dotonly.cu (kernel B4b) shares with them.
 //
 // What it computes (the TPU kernels' semantics, nafp_tpu/search/
 // pallas_topk.py): for each query the k best rows by inner product, scores
@@ -14,13 +15,14 @@
 //   1. scan: grid (n_chunks, ceil(Bq/QB)). A CTA holds QB queries in shared
 //      memory and streams its chunk of DB rows through shared memory in
 //      tiles of RB rows. Each thread computes an 8-query x 2-row block of
-//      scores with f32 FMAs (no tensor cores, no TF32), compares every
-//      score with its query's current k-th best (a threshold held in
-//      shared memory) and appends the few survivors to a per-query
-//      candidate list; one thread per query then inserts them into the
-//      query's sorted top-k. Once the lists are warm almost every score
-//      fails the threshold compare, so selection costs one compare per
-//      score. The chunk's top-k goes to a (Bq, n_chunks, k) scratch.
+//      scores with f32 FMAs (no tensor cores, no TF32; SQ8_I8: __dp4a into
+//      s32), compares every score with its query's current k-th best (a
+//      threshold held in shared memory) and appends the few survivors to a
+//      per-query candidate list; the selection step then moves them into
+//      the query's top-k (Select below). Once the lists are warm almost
+//      every score fails the threshold compare, so selection costs one
+//      compare per score. The chunk's top-k goes to a (Bq, n_chunks, k)
+//      scratch.
 //   2. merge: one CTA per query reduces its n_chunks * k candidates with the
 //      same threshold-and-insert scheme and writes the sorted result.
 // Order: (score, row) pairs compare by score, then by lower row, so results
@@ -38,6 +40,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace nafp {
@@ -56,8 +59,21 @@ constexpr int MAX_D = 256;
 //   F32:    f32 rows, every row below n valid;
 //   SQ8:    int8 rows, (round_bf16(q) . row) * scales[row] + rmask[row];
 //   MASKED: bf16 rows, (round_bf16(q) . row) + mask(ids[row]) +
-//           bias[q][row / list_tile], mask 0 where ids[row] >= 0, else NEG.
-enum class Mode { F32, SQ8, MASKED };
+//           bias[q][row / list_tile], mask 0 where ids[row] >= 0, else NEG;
+//   SQ8_I8: int8 rows and int8 queries (quantised by the caller),
+//           float(q8 . row) * scales[row] + rmask[row], the dot product an
+//           exact s32 sum of __dp4a (|sum| <= 127 * 127 * d < 2^24 for
+//           d <= MAX_D, so its float is exact too).
+enum class Mode { F32, SQ8, MASKED, SQ8_I8 };
+
+// How the scan moves a tile's candidates into a query's running top-k:
+//   INSERT: a sorted list, worst first; one thread per query inserts its
+//           candidates in turn (B1, B2, B3, and B4a's v0/v3 merge);
+//   DRAIN:  an unsorted list whose worst entry is kept at slot 0; one warp
+//           per query takes the best candidate and replaces the worst entry
+//           until no candidate beats it (B4a's v2 merge, drain_lists).
+// Slot 0 is the admission threshold either way.
+enum class Select { INSERT, DRAIN };
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
@@ -85,7 +101,10 @@ __device__ __forceinline__ float bf16_bits_to_float(unsigned short b) {
   return __uint_as_float((unsigned)b << 16);  // exact
 }
 
-// Shared-memory bytes of one scan CTA.
+// Shared-memory bytes of one scan CTA. A staged query or DB row takes
+// dp = d + 4 floats: 16-byte aligned rows and conflict-free float4 reads.
+// SQ8_I8 stages its int8 values at the start of each such row, where int4
+// reads are conflict-free at the same stride.
 template <Mode MODE>
 inline size_t scan_smem_bytes(int d, int k) {
   const int dp = d + 4;
@@ -101,74 +120,62 @@ inline size_t merge_smem_bytes(int k) {
          + sizeof(int);
 }
 
-// Row-side inputs beyond the DB itself: SQ8 reads scales and rmask,
-// MASKED reads ids and bias (row-major (bq, n / list_tile)).
-struct RowInputs {
-  const float* scales;
-  const float* rmask;
-  const int* ids;
-  const float* bias;
-  int list_tile;
-};
-
-// MASKED: list_tile is a multiple of RB and every tile starts at a multiple
-// of RB (chunk_rows is one), so a tile lies inside one list_tile subtile and
-// takes a single bias value per query, staged in shared memory. Scores
-// <= NEG/2 (masked ids, unprobed subtiles) are never candidates; their
-// slots stay empty and come out as -1, as the TPU kernel reports them.
+// Stage queries q0 .. q0+QB-1 of q (Bq, d) into qs ([QB][d + 4]), zeros
+// past bq: f32, rounded to bf16 for SQ8 and MASKED; int8 for SQ8_I8.
 template <Mode MODE>
-__global__ void __launch_bounds__(THREADS)
-scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
-            RowInputs rin, int bq, int n, int d, int k, int chunk_rows,
-            int n_chunks, float* __restrict__ part_v,
-            int* __restrict__ part_i) {
-  constexpr bool QBF16 = MODE != Mode::F32;  // q rounded to bf16
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int dp = d + 4;  // row stride: 16-byte aligned, float4 reads conflict-free
-  float* qs = reinterpret_cast<float*>(smem);  // [QB][dp]
-  float* ds = qs + QB * dp;                    // [RB][dp]
-  float* sc = ds + RB * dp;                    // [RB]
-  float* rm = sc + RB;                         // [RB]
-  float* lv = rm + RB;                         // [QB][k]
-  int* li = reinterpret_cast<int*>(lv + QB * k);
-  float* cv = reinterpret_cast<float*>(li + QB * k);  // [QB][RB]
-  int* ci = reinterpret_cast<int*>(cv + QB * RB);
-  int* cnt = ci + QB * RB;                            // [QB]
-  float* qbias = reinterpret_cast<float*>(cnt + QB);  // [QB], MASKED only
-
-  const int tid = threadIdx.x;
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * QB;
-  const int row_begin = chunk * chunk_rows;
-  const int row_end = min(n, row_begin + chunk_rows);
-  const int d4 = d / 4;
-
-  for (int e = tid; e < QB * d4; e += THREADS) {
-    const int r = e / d4, c = e % d4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < bq)
-      v = reinterpret_cast<const float4*>(q + (size_t)(q0 + r) * d)[c];
-    if (QBF16) {
-      v.x = round_bf16(v.x); v.y = round_bf16(v.y);
-      v.z = round_bf16(v.z); v.w = round_bf16(v.w);
+__device__ __forceinline__ void stage_queries(const void* __restrict__ q,
+                                              int q0, int bq, int d,
+                                              float* qs) {
+  const int dp = d + 4;
+  if constexpr (MODE == Mode::SQ8_I8) {
+    const int d16 = d / 16;
+    for (int e = threadIdx.x; e < QB * d16; e += THREADS) {
+      const int r = e / d16, c = e % d16;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (q0 + r < bq)
+        v = reinterpret_cast<const int4*>(static_cast<const int8_t*>(q) +
+                                          (size_t)(q0 + r) * d)[c];
+      reinterpret_cast<int4*>(qs + r * dp)[c] = v;
     }
-    *reinterpret_cast<float4*>(qs + r * dp + 4 * c) = v;
+  } else {
+    const int d4 = d / 4;
+    for (int e = threadIdx.x; e < QB * d4; e += THREADS) {
+      const int r = e / d4, c = e % d4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < bq)
+        v = reinterpret_cast<const float4*>(static_cast<const float*>(q) +
+                                            (size_t)(q0 + r) * d)[c];
+      if (MODE != Mode::F32) {
+        v.x = round_bf16(v.x); v.y = round_bf16(v.y);
+        v.z = round_bf16(v.z); v.w = round_bf16(v.w);
+      }
+      *reinterpret_cast<float4*>(qs + r * dp + 4 * c) = v;
+    }
   }
-  for (int e = tid; e < QB * k; e += THREADS) {
-    lv[e] = NEG;
-    li[e] = NO_ROW;
-  }
-  for (int e = tid; e < QB; e += THREADS) cnt[e] = 0;
-  __syncthreads();
+}
 
-  const int tr = tid & 31;        // rows tr and tr + 32 of each tile
-  const int tq = tid >> 5;        // queries tq*QPT .. tq*QPT + QPT-1
-  const float* qp = qs + tq * QPT * dp;
-  const float* dp0 = ds + tr * dp;
-  const float* dp1 = ds + (tr + 32) * dp;
-
-  for (int t0 = row_begin; t0 < row_end; t0 += RB) {
-    for (int e = tid; e < RB * d4; e += THREADS) {
+// Stage DB rows t0 .. t0+RB-1 into ds ([RB][d + 4]) as the mode's row type
+// converts (exactly) to f32, or as int8 for SQ8_I8; zeros at and past
+// row_end.
+template <Mode MODE>
+__device__ __forceinline__ void stage_rows(const void* __restrict__ db,
+                                           int t0, int row_end, int d,
+                                           float* ds) {
+  const int dp = d + 4;
+  if constexpr (MODE == Mode::SQ8_I8) {
+    const int d16 = d / 16;
+    for (int e = threadIdx.x; e < RB * d16; e += THREADS) {
+      const int r = e / d16, c = e % d16;
+      const int row = t0 + r;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (row < row_end)
+        v = reinterpret_cast<const int4*>(static_cast<const int8_t*>(db) +
+                                          (size_t)row * d)[c];
+      reinterpret_cast<int4*>(ds + r * dp)[c] = v;
+    }
+  } else {
+    const int d4 = d / 4;
+    for (int e = threadIdx.x; e < RB * d4; e += THREADS) {
       const int r = e / d4, c = e % d4;
       const int row = t0 + r;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -189,7 +196,196 @@ scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
       }
       *reinterpret_cast<float4*>(ds + r * dp + 4 * c) = v;
     }
-    if (MODE == Mode::SQ8) {
+  }
+}
+
+// The products of one staged tile: acc[i][j] = the dot product of staged
+// query row qp + i * dp with staged DB row dp0 (j = 0) or dp1 (j = 1). f32
+// FMAs in a fixed order; SQ8_I8 sums __dp4a in s32 and converts the exact
+// sum.
+template <Mode MODE>
+__device__ __forceinline__ void tile_products(const float* qp,
+                                              const float* dp0,
+                                              const float* dp1, int d, int dp,
+                                              float (&acc)[QPT][2]) {
+  if constexpr (MODE == Mode::SQ8_I8) {
+    const int4* r0 = reinterpret_cast<const int4*>(dp0);
+    const int4* r1 = reinterpret_cast<const int4*>(dp1);
+    int ia[QPT][2];
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) ia[i][0] = ia[i][1] = 0;
+#pragma unroll 4
+    for (int c = 0; c < d / 16; ++c) {
+      const int4 b0 = r0[c];
+      const int4 b1 = r1[c];
+#pragma unroll
+      for (int i = 0; i < QPT; ++i) {
+        const int4 a = reinterpret_cast<const int4*>(qp + i * dp)[c];
+        ia[i][0] = __dp4a(a.x, b0.x, ia[i][0]);
+        ia[i][0] = __dp4a(a.y, b0.y, ia[i][0]);
+        ia[i][0] = __dp4a(a.z, b0.z, ia[i][0]);
+        ia[i][0] = __dp4a(a.w, b0.w, ia[i][0]);
+        ia[i][1] = __dp4a(a.x, b1.x, ia[i][1]);
+        ia[i][1] = __dp4a(a.y, b1.y, ia[i][1]);
+        ia[i][1] = __dp4a(a.z, b1.z, ia[i][1]);
+        ia[i][1] = __dp4a(a.w, b1.w, ia[i][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+      acc[i][0] = (float)ia[i][0];
+      acc[i][1] = (float)ia[i][1];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) acc[i][0] = acc[i][1] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < d; c += 4) {
+      const float4 b0 = *reinterpret_cast<const float4*>(dp0 + c);
+      const float4 b1 = *reinterpret_cast<const float4*>(dp1 + c);
+#pragma unroll
+      for (int i = 0; i < QPT; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(qp + i * dp + c);
+        acc[i][0] = fmaf(a.x, b0.x, acc[i][0]);
+        acc[i][0] = fmaf(a.y, b0.y, acc[i][0]);
+        acc[i][0] = fmaf(a.z, b0.z, acc[i][0]);
+        acc[i][0] = fmaf(a.w, b0.w, acc[i][0]);
+        acc[i][1] = fmaf(a.x, b1.x, acc[i][1]);
+        acc[i][1] = fmaf(a.y, b1.y, acc[i][1]);
+        acc[i][1] = fmaf(a.z, b1.z, acc[i][1]);
+        acc[i][1] = fmaf(a.w, b1.w, acc[i][1]);
+      }
+    }
+  }
+}
+
+// Warp-wide argmax / argmin of (v, i) pairs in the better() order; every
+// lane ends with the pair (and, for the worst, a slot that holds it).
+__device__ __forceinline__ void warp_best(float& v, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (better(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+}
+
+__device__ __forceinline__ void warp_worst(float& v, int& i, int& s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    const int os = __shfl_xor_sync(0xffffffffu, s, o);
+    if (better(v, i, ov, oi)) { v = ov; i = oi; s = os; }
+  }
+}
+
+// Select::DRAIN, the counterpart of the TPU's v2 merge (extras/
+// bench_sq8_kernel.py, _merge_tile_v2): for each query, one warp takes the
+// best of the tile's candidates and, while it beats the worst entry of the
+// unsorted k-list (slot 0), writes it there and moves the new worst entry to
+// slot 0. The TPU takes each step's argmax and argmin across its lanes;
+// here they are warp shuffles (warp_best, warp_worst). A candidate that
+// fails stops the drain: every later one is worse and the threshold only
+// rises. Resets the query's candidate count.
+__device__ __forceinline__ void drain_lists(float* lv, int* li,
+                                            const float* cv, const int* ci,
+                                            int* cnt, int k) {
+  const int lane = threadIdx.x & 31;
+  for (int qi = threadIdx.x >> 5; qi < QB; qi += THREADS / 32) {
+    const int m = cnt[qi];
+    if (m == 0) continue;
+    float* L = lv + qi * k;
+    int* LI = li + qi * k;
+    // the lane's candidates (at most RB = 64 per query); -inf when taken
+    float c0 = lane < m ? cv[qi * RB + lane] : -INFINITY;
+    int i0 = lane < m ? ci[qi * RB + lane] : NO_ROW;
+    float c1 = lane + 32 < m ? cv[qi * RB + lane + 32] : -INFINITY;
+    int i1 = lane + 32 < m ? ci[qi * RB + lane + 32] : NO_ROW;
+    while (true) {
+      float bv = c0;
+      int bi = i0;
+      if (better(c1, i1, bv, bi)) { bv = c1; bi = i1; }
+      warp_best(bv, bi);
+      if (!better(bv, bi, L[0], LI[0])) break;
+      if (i0 == bi) { c0 = -INFINITY; i0 = NO_ROW; }
+      else if (i1 == bi) { c1 = -INFINITY; i1 = NO_ROW; }
+      __syncwarp();
+      if (lane == 0) { L[0] = bv; LI[0] = bi; }
+      __syncwarp();
+      float wv = INFINITY;
+      int wi = -1, ws = 0;
+      for (int s = lane; s < k; s += 32)
+        if (better(wv, wi, L[s], LI[s])) { wv = L[s]; wi = LI[s]; ws = s; }
+      warp_worst(wv, wi, ws);
+      if (lane == 0 && ws != 0) {
+        L[ws] = L[0]; LI[ws] = LI[0];
+        L[0] = wv; LI[0] = wi;
+      }
+      __syncwarp();
+    }
+    if (lane == 0) cnt[qi] = 0;
+  }
+}
+
+// Row-side inputs beyond the DB itself: SQ8 reads scales and rmask,
+// MASKED reads ids and bias (row-major (bq, n / list_tile)).
+struct RowInputs {
+  const float* scales;
+  const float* rmask;
+  const int* ids;
+  const float* bias;
+  int list_tile;
+};
+
+// MASKED: list_tile is a multiple of RB and every tile starts at a multiple
+// of RB (chunk_rows is one), so a tile lies inside one list_tile subtile and
+// takes a single bias value per query, staged in shared memory. Scores
+// <= NEG/2 (masked ids, unprobed subtiles) are never candidates; their
+// slots stay empty and come out as -1, as the TPU kernel reports them.
+template <Mode MODE, Select SEL>
+__global__ void __launch_bounds__(THREADS)
+scan_kernel(const void* __restrict__ q, const void* __restrict__ db,
+            RowInputs rin, int bq, int n, int d, int k, int chunk_rows,
+            int n_chunks, float* __restrict__ part_v,
+            int* __restrict__ part_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int dp = d + 4;  // row stride: 16-byte aligned, float4 reads conflict-free
+  float* qs = reinterpret_cast<float*>(smem);  // [QB][dp]
+  float* ds = qs + QB * dp;                    // [RB][dp]
+  float* sc = ds + RB * dp;                    // [RB]
+  float* rm = sc + RB;                         // [RB]
+  float* lv = rm + RB;                         // [QB][k]
+  int* li = reinterpret_cast<int*>(lv + QB * k);
+  float* cv = reinterpret_cast<float*>(li + QB * k);  // [QB][RB]
+  int* ci = reinterpret_cast<int*>(cv + QB * RB);
+  int* cnt = ci + QB * RB;                            // [QB]
+  float* qbias = reinterpret_cast<float*>(cnt + QB);  // [QB], MASKED only
+
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x;
+  const int q0 = blockIdx.y * QB;
+  const int row_begin = chunk * chunk_rows;
+  const int row_end = min(n, row_begin + chunk_rows);
+  constexpr bool SCALED = MODE == Mode::SQ8 || MODE == Mode::SQ8_I8;
+
+  stage_queries<MODE>(q, q0, bq, d, qs);
+  for (int e = tid; e < QB * k; e += THREADS) {
+    lv[e] = NEG;
+    li[e] = NO_ROW;
+  }
+  for (int e = tid; e < QB; e += THREADS) cnt[e] = 0;
+  __syncthreads();
+
+  const int tr = tid & 31;        // rows tr and tr + 32 of each tile
+  const int tq = tid >> 5;        // queries tq*QPT .. tq*QPT + QPT-1
+  const float* qp = qs + tq * QPT * dp;
+  const float* dp0 = ds + tr * dp;
+  const float* dp1 = ds + (tr + 32) * dp;
+
+  for (int t0 = row_begin; t0 < row_end; t0 += RB) {
+    stage_rows<MODE>(db, t0, row_end, d, ds);
+    if (SCALED) {
       for (int r = tid; r < RB; r += THREADS) {
         const int row = t0 + r;
         sc[r] = row < row_end ? rin.scales[row] : 0.f;
@@ -210,25 +406,7 @@ scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
     __syncthreads();
 
     float acc[QPT][2];
-#pragma unroll
-    for (int i = 0; i < QPT; ++i) acc[i][0] = acc[i][1] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; c += 4) {
-      const float4 b0 = *reinterpret_cast<const float4*>(dp0 + c);
-      const float4 b1 = *reinterpret_cast<const float4*>(dp1 + c);
-#pragma unroll
-      for (int i = 0; i < QPT; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(qp + i * dp + c);
-        acc[i][0] = fmaf(a.x, b0.x, acc[i][0]);
-        acc[i][0] = fmaf(a.y, b0.y, acc[i][0]);
-        acc[i][0] = fmaf(a.z, b0.z, acc[i][0]);
-        acc[i][0] = fmaf(a.w, b0.w, acc[i][0]);
-        acc[i][1] = fmaf(a.x, b1.x, acc[i][1]);
-        acc[i][1] = fmaf(a.y, b1.y, acc[i][1]);
-        acc[i][1] = fmaf(a.z, b1.z, acc[i][1]);
-        acc[i][1] = fmaf(a.w, b1.w, acc[i][1]);
-      }
-    }
+    tile_products<MODE>(qp, dp0, dp1, d, dp, acc);
 
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -239,7 +417,7 @@ scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
       for (int i = 0; i < QPT; ++i) {
         const int qi = tq * QPT + i;
         float s = acc[i][j];
-        if (MODE == Mode::SQ8) s = s * sc[r] + rm[r];
+        if (SCALED) s = s * sc[r] + rm[r];
         if (MODE == Mode::MASKED) {
           s = s + rm[r] + qbias[qi];
           if (s <= NEG / 2) continue;
@@ -252,12 +430,16 @@ scan_kernel(const float* __restrict__ q, const void* __restrict__ db,
       }
     }
     __syncthreads();
-    if (tid < QB) {
-      const int m = cnt[tid];
-      for (int e = 0; e < m; ++e)
-        insert_sorted(lv + tid * k, li + tid * k, k, cv[tid * RB + e],
-                      ci[tid * RB + e]);
-      cnt[tid] = 0;
+    if constexpr (SEL == Select::INSERT) {
+      if (tid < QB) {
+        const int m = cnt[tid];
+        for (int e = 0; e < m; ++e)
+          insert_sorted(lv + tid * k, li + tid * k, k, cv[tid * RB + e],
+                        ci[tid * RB + e]);
+        cnt[tid] = 0;
+      }
+    } else {
+      drain_lists(lv, li, cv, ci, cnt, k);
     }
     __syncthreads();
   }
@@ -321,26 +503,50 @@ merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
 }
 
 // Launch scan + merge on `stream`; returns cudaGetLastError() after each
-// step (0 when both launches were accepted).
-template <Mode MODE>
-int launch_topk(const float* q, const void* db, RowInputs rin, int bq,
+// step (0 when both launches were accepted). The merge sorts whatever order
+// the scan's lists are in.
+template <Mode MODE, Select SEL = Select::INSERT>
+int launch_topk(const void* q, const void* db, RowInputs rin, int bq,
                 int n, int d, int k, int chunk_rows, int n_chunks,
                 float* part_v, int* part_i, float* out_v, int* out_i,
                 cudaStream_t stream) {
   cudaGetLastError();  // clear any stale error from earlier work
   const size_t scan_smem = scan_smem_bytes<MODE>(d, k);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      scan_kernel<MODE, SEL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)scan_smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_chunks, (bq + QB - 1) / QB);
-  scan_kernel<MODE><<<grid, THREADS, scan_smem, stream>>>(
+  scan_kernel<MODE, SEL><<<grid, THREADS, scan_smem, stream>>>(
       q, db, rin, bq, n, d, k, chunk_rows, n_chunks, part_v, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<bq, MERGE_THREADS, merge_smem_bytes(k), stream>>>(
       part_v, part_i, n_chunks * k, k, out_v, out_i);
   return (int)cudaGetLastError();
+}
+
+// What limits the scan's residency at (d, k): info[0] its dynamic shared
+// memory per CTA in bytes, info[1] the CTAs one SM holds at once, info[2]
+// its registers per thread. Returns a CUDA error code (0 on success).
+template <Mode MODE, Select SEL = Select::INSERT>
+int scan_occupancy(int d, int k, int* info) {
+  const size_t smem = scan_smem_bytes<MODE>(d, k);
+  cudaError_t err = cudaFuncSetAttribute(
+      scan_kernel<MODE, SEL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, scan_kernel<MODE, SEL>);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, scan_kernel<MODE, SEL>, THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = (int)smem;
+  info[1] = per_sm;
+  info[2] = attr.numRegs;
+  return 0;
 }
 
 }  // namespace nafp

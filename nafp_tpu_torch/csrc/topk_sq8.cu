@@ -29,3 +29,9 @@ extern "C" int nafp_topk_sq8(const float* q, const int8_t* vecs8,
       k, chunk_rows, n_chunks, part_v, part_i, out_v, out_i,
       static_cast<cudaStream_t>(stream));
 }
+
+// The scan's shared memory per CTA, resident CTAs per SM and registers per
+// thread at (d, k), into info[0..2] (nafp::scan_occupancy).
+extern "C" int nafp_topk_sq8_occupancy(int d, int k, int* info) {
+  return nafp::scan_occupancy<nafp::Mode::SQ8>(d, k, info);
+}

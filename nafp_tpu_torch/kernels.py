@@ -20,7 +20,8 @@ from typing import Dict, Iterable, Optional, Tuple
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("topk_f32", "topk_sq8", "topk_masked")
+KERNELS = ("topk_f32", "topk_sq8", "topk_masked", "bench_variant",
+           "bench_dotonly")
 _HEADERS = ("topk_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -99,6 +100,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``nafp_<name>`` of kernel library ``name`` (built
+    and loaded first if needed) with its argument types set; it returns a
+    CUDA error code, 0 on success."""
+    fn = getattr(load(name), f"nafp_{name}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def build_all() -> Tuple[float, Dict[str, str]]:

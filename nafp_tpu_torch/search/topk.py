@@ -209,16 +209,14 @@ _ARGTYPES = {
 
 def _lib_fn(name: str):
     from nafp_tpu_torch import kernels
-    fn = getattr(kernels.load(name), f"nafp_{name}")
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
+    return kernels.function(name, _ARGTYPES[name])
 
 
-def _launch(lib: str, counter: str, q: torch.Tensor, tensors, n: int,
-            k: int, extra=()) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``lib``'s scan + merge; ``extra`` are the C function's int
-    arguments after k."""
+def _launch(fn, counts: Dict[str, int], counter: str, q: torch.Tensor,
+            tensors, n: int, k: int, extra=()
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch a scan + merge C entry point ``fn``; ``extra`` are its int
+    arguments after k. Adds one to ``counts[counter]`` once it launched."""
     bq, d = q.shape
     dev = q.device
     chunk_rows, n_chunks = _grid(bq, n, dev)
@@ -226,7 +224,6 @@ def _launch(lib: str, counter: str, q: torch.Tensor, tensors, n: int,
     part_i = torch.empty((bq, n_chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
-    fn = _lib_fn(lib)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), *[t.data_ptr() for t in tensors], bq, n, d,
@@ -234,8 +231,9 @@ def _launch(lib: str, counter: str, q: torch.Tensor, tensors, n: int,
                  part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
                  stream)
     if err:
-        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {err}")
-    LAUNCHES[counter] += 1
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
+                           f"{err}")
+    counts[counter] += 1
     return out_v, out_i
 
 
@@ -256,7 +254,8 @@ def topk_ip(q: torch.Tensor, db: torch.Tensor, k: int
     if bq == 0:
         return (torch.empty((0, k), device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
-    return _launch("topk_f32", "topk_ip", q, [db], n, k)
+    return _launch(_lib_fn("topk_f32"), LAUNCHES, "topk_ip", q, [db], n,
+                   k)
 
 
 def topk_ip_sq8(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
@@ -280,7 +279,8 @@ def topk_ip_sq8(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
     if bq == 0:
         return (torch.empty((0, k), device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
-    return _launch("topk_sq8", "topk_ip_sq8", q, [vecs8, scales, rmask], n, k)
+    return _launch(_lib_fn("topk_sq8"), LAUNCHES, "topk_ip_sq8", q,
+                   [vecs8, scales, rmask], n, k)
 
 
 def topk_ip_masked(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
@@ -313,6 +313,6 @@ def topk_ip_masked(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
     if bq == 0:
         return (torch.empty((0, k), device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
-    v, pos = _launch("topk_masked", "topk_ip_masked", q, [db, ids, bias], n,
-                     k, extra=(list_tile,))
+    v, pos = _launch(_lib_fn("topk_masked"), LAUNCHES, "topk_ip_masked", q,
+                     [db, ids, bias], n, k, extra=(list_tile,))
     return v, _map_ids(pos, ids)
