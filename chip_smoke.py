@@ -8,14 +8,15 @@ the kernels are compiled for sm_90a). It builds the CUDA kernels from the
 sources in ``nafp_tpu_torch/csrc/``, then:
 
 1. device: the card's name, count and power limit, the kernel build time;
-2. kernels B1 (``topk_ip``), B2 (``topk_ip_sq8``), B3 (``topk_ip_masked``),
-   B4a (``run_variant``: v3, v2 and int8) and B4b (``run_dotonly``) against
-   their plain PyTorch versions at the main path's shapes and edge cases,
-   timed with CUDA events beside their bound and a one-call PyTorch
-   yardstick (matmul + topk, which the port never calls); B4a and B4b also
-   at B2's shape beside B2, and v2 against B2 at k 80; B4b once more held
-   to B2's resident CTAs per SM at k 20 and k 80 (B2's shared memory per
-   CTA), with each launch's shared memory, CTAs per SM, registers and grid;
+2. kernels B1 (``topk_ip``), B2 (``topk_ip_sq8``), B3 (``topk_ip_masked``,
+   also with ties across its chunks), B4a (``run_variant``: v3, v2 and
+   int8) and B4b (``run_dotonly``) against their plain PyTorch versions at
+   the main path's shapes and edge cases (B3 and B4b also at d 256 and
+   d 20), timed with CUDA events beside
+   their bound and a one-call PyTorch yardstick (matmul + topk, which the
+   port never calls), at k 20 and k 80 for B2 and B3; B4a and B4b also at
+   B2's shape beside B2, with their yardsticks there, and v2 against B2 at
+   k 80; each launch's shared memory, CTAs per SM, registers and grid;
 3. the serving path through the CLI at full model width (random weights
    from a seed, written in the Flax layout as ``params.npz``): a seeded
    synthetic corpus -> ``generate`` -> a 619,500-row DB (the 10k-song
@@ -31,7 +32,7 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    N 8,388,608 x 128 int8, Bq 512, k 20, with the launch counters zeroed
    just before and read just after; then B2 (the bench's v0), B4a and B4b
    on the same data against their plain versions, with the plain versions'
-   and the yardsticks' times, and B4b at B2's residency;
+   and the yardsticks' times, and what B2 leaves above B4b's floor;
 5. the encoder on the card against the port on the CPU (f32), bf16
    against f32 on the card, ``evaluate -i l2`` on the card against the
    same protocol on the CPU (a reduced id set), and the persisted IVF-PQ
@@ -99,6 +100,9 @@ B3_LAUNCHES_PER_RUN = 235
 # ivfpq-rr top-1 agreement with l2 may trail ivfpq's by at most this
 # (tests/test_index.py's IVF-PQ recall rule)
 RR_AGREE_SLACK = 0.02
+# row widths off the main path that B3 and B4b also take: 256 (their second
+# K extent) and 20 (a multiple of 4 only: narrower cp.async copies)
+OTHER_D = (256, 20)
 
 
 def log(*args):
@@ -256,9 +260,10 @@ def phase_kernels(dev):
     plain_ms = time_ms(lambda: T.topk_ip_sq8_plain(
         q, vecs8, scales, rmask, K, compute_dtype=torch.bfloat16), 5)
     v16 = vecs8.to(torch.bfloat16)
-    lib_ms = time_ms(lambda: torch.topk(
-        torch.matmul(q.to(torch.bfloat16), v16.T).float() * scales + rmask,
-        K, dim=1), 10)
+    q16 = q.to(torch.bfloat16)
+    lib_ms, lib_ms_k80 = (time_ms(lambda: torch.topk(
+        torch.matmul(q16, v16.T).float() * scales + rmask, k, dim=1), 10)
+        for k in (K, 4 * K))
     flops = 2.0 * 1024 * SQ8_ROWS * 128
     nbytes = (SQ8_ROWS * 128 + 8.0 * SQ8_ROWS + 4.0 * 1024 * 128
               + 8.0 * 1024 * K)
@@ -269,12 +274,14 @@ def phase_kernels(dev):
         replaces="nafp_tpu/search/pallas_topk.py:306 (topk_ip_sq8_pallas)",
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by="operations" if flops / PEAK_BF16 >= nbytes / PEAK_BYTES
-        else "bytes", library_ms=lib_ms,
+        else "bytes", library_ms=lib_ms, library_ms_k80=lib_ms_k80,
         shape="Bq 1024, N 620544, d 128, k 20")
     log(f"  B2 @ Bq 1024: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bf16 matmul+topk {lib_ms:.3f} ms, bound {bound:.3f} ms")
+        f"bf16 matmul+topk {lib_ms:.3f} ms ({lib_ms_k80:.3f} ms at k "
+        f"{4 * K}), bound {bound:.3f} ms")
+    del q16
+    rec["b4"] = phase_kernel_b4(dev, gen, vecs8, v16, scales, rmask)
     del v16
-    rec["b4"] = phase_kernel_b4(dev, gen, vecs8, scales, rmask)
     del vecs8, scales, rmask
 
     rec["topk_ip_masked"] = phase_kernel_b3(dev, gen)
@@ -344,30 +351,13 @@ def occupancy(lib, fn_name, *args, n_out):
     return list(info)
 
 
-def b2_and_floor_residency(dev, bq, n, k):
-    """B2's scan at (bq, n, k) and B4b (blk 2048) held to B2's shared memory
-    per CTA: {"b2": ..., "b4b_at_b2": ...}, each with the shared memory per
-    CTA in bytes, resident CTAs per SM, registers per thread and CTAs in the
-    grid."""
-    from nafp_tpu_torch.search import topk as T
-    smem, per_sm, regs = occupancy("topk_sq8", "nafp_topk_sq8_occupancy",
-                                   128, k, n_out=3)
-    n_chunks = T._grid(bq, n, dev)[1]
-    b4b = occupancy("bench_dotonly", "nafp_bench_dotonly_occupancy", bq, n,
-                    128, 2048, smem, n_out=4)
-    keys = ("smem", "ctas_per_sm", "regs", "grid")
-    return {"b2": dict(zip(keys, (smem, per_sm, regs,
-                                  n_chunks * -(-bq // T.QB)))),
-            "b4b_at_b2": dict(zip(keys, b4b))}
-
-
-def phase_kernel_b4(dev, gen, vecs8, scales, rmask):
+def phase_kernel_b4(dev, gen, vecs8, v16, scales, rmask):
     """B4a (v3, v2, int8) and B4b on B2's store (the main path's sq8 shape,
     1 % tombstones) against their plain versions, with edge cases; then
-    timed beside B2 at B2's main shape (Bq 1024, k 20), and v2 against B2
-    at k 80. B4b is timed twice: as it launches itself, and held to B2's
-    resident CTAs per SM at k 20 and at k 80 (the shared memory B2's
-    k-lists and candidates take), with each launch's residency logged."""
+    timed beside B2 at B2's main shape (Bq 1024, k 20), each with its
+    one-call yardstick there, and v2 against B2 at k 80. B4b is the
+    tensor-core floor: (B2 - B4b) / B2 is what B2 leaves above it. Each
+    launch's shared memory, CTAs per SM, registers and grid are logged."""
     import torch
     from nafp_tpu_torch.extras import bench_sq8_kernel as B
     from nafp_tpu_torch.search import topk as T
@@ -396,13 +386,23 @@ def phase_kernel_b4(dev, gen, vecs8, scales, rmask):
         errs[name].append(check_b4a(
             f"B4a {name} all-negative, k 48 > 30 valid rows", name, neg_q,
             small8, small_sc, small_rm.contiguous(), 48, blk=128))
-    for bq in (512, 1):
+    for bq, blk in ((512, 2048), (1, 2048), (300, 128)):
         errs["dotonly"].append(check_b4b(
-            f"B4b Bq={bq} N={SQ8_ROWS} blk 2048", unit_rows(bq, 128, gen, dev),
-            vecs8, 2048))
+            f"B4b Bq={bq} N={SQ8_ROWS} blk {blk}",
+            unit_rows(bq, 128, gen, dev), vecs8, blk))
+    for d in OTHER_D:
+        v8d, _ = quantize(unit_rows(65_536, d, gen, dev))
+        errs["dotonly"].append(check_b4b(
+            f"B4b d={d} Bq=300 N=65536 blk 128", unit_rows(300, d, gen, dev),
+            v8d, 128))
+        occ = occupancy("bench_dotonly", "nafp_bench_dotonly_occupancy", 300,
+                        65_536, d, 128, n_out=4)
+        log(f"    residency B4b d {d}: {occ[0]} B shared memory per CTA, "
+            f"{occ[1]} CTAs per SM, {occ[2]} registers, {occ[3]} CTAs")
 
-    # B2's main shape, in turns with B2
+    # B2's main shape, in turns with B2, then the yardsticks
     q = unit_rows(1024, 128, gen, dev)
+    q16 = q.to(torch.bfloat16)
     ms = {"b2": time_ms(lambda: T.topk_ip_sq8(q, vecs8, scales, rmask, K),
                         20)}
     for name, kw in B4A.items():
@@ -416,42 +416,42 @@ def phase_kernel_b4(dev, gen, vecs8, scales, rmask):
                                                  4 * K), 10)
     ms["v2_k80"] = time_ms(lambda: B.run_variant(
         q, vecs8, scales, rmask, k=4 * K, merge_mode="v2"), 10)
-    res = {"b4b": dict(zip(("smem", "ctas_per_sm", "regs", "grid"),
-                           occupancy("bench_dotonly",
-                                     "nafp_bench_dotonly_occupancy", 1024,
-                                     SQ8_ROWS, 128, 2048, 0, n_out=4)))}
-    own = B.dotonly_blocks(q, vecs8)
+    lib = {"v3": time_ms(lambda: lib_sq8_topk(q16, v16, scales, rmask, K,
+                                              False), 10),
+           "int8": time_ms(lambda: lib_sq8_topk(q, vecs8, scales, rmask, K,
+                                                True), 10),
+           "v2_k80": time_ms(lambda: lib_sq8_topk(q16, v16, scales, rmask,
+                                                  4 * K, False), 10),
+           "dotonly": time_ms(lambda: lib_block_max(q16, v16, 2048), 10)}
+    lib["v2"] = lib["v3"]      # the same function
+    keys = ("smem", "ctas_per_sm", "regs", "grid")
+    res = {"b4b": dict(zip(keys, occupancy(
+        "bench_dotonly", "nafp_bench_dotonly_occupancy", 1024, SQ8_ROWS,
+        128, 2048, n_out=4)))}
     for k in (K, 4 * K):
-        occ = b2_and_floor_residency(dev, 1024, SQ8_ROWS, k)
-        res[f"b2_k{k}"], res[f"b4b_at_b2_k{k}"] = occ["b2"], occ["b4b_at_b2"]
-        if not torch.equal(B.dotonly_blocks(
-                q, vecs8, smem_min=occ["b2"]["smem"]), own):
-            raise AssertionError(f"B4b at B2's k {k} residency: other maxima")
-        ms[f"dotonly_at_b2_k{k}"] = time_ms(lambda: B.dotonly_blocks(
-            q, vecs8, smem_min=occ["b2"]["smem"]), 20)
-    del own
+        occ = occupancy("topk_sq8", "nafp_topk_sq8_occupancy", 128, k,
+                        n_out=3)
+        res[f"b2_k{k}"] = dict(zip(keys, (*occ, T._grid(
+            1024, SQ8_ROWS, dev)[1] * -(-1024 // T.QB))))
     b2, b2_80 = min(ms["b2"], ms["b2_again"]), ms["b2_k80"]
-    floor_20, floor_80 = (ms[f"dotonly_at_b2_k{k}"] for k in (K, 4 * K))
     share = {"k20": (b2 - ms["dotonly"]) / b2,
-             "k80": (b2_80 - ms["dotonly"]) / b2_80,
-             "k20_at_b2_residency": (b2 - floor_20) / b2,
-             "k80_at_b2_residency": (b2_80 - floor_80) / b2_80}
+             "k80": (b2_80 - ms["dotonly"]) / b2_80}
     log(f"  B2 shape (Bq 1024, N {SQ8_ROWS}): B2 {ms['b2']:.3f} / "
         f"{ms['b2_again']:.3f} ms, B4a v3 {ms['v3']:.3f}, v2 {ms['v2']:.3f}, "
         f"int8 {ms['int8']:.3f}, B4b {ms['dotonly']:.3f} ms; k 80: B2 "
         f"{ms['b2_k80']:.3f}, v2 {ms['v2_k80']:.3f} ms")
-    log(f"  B4b at B2's residency: {floor_20:.3f} ms (k {K}'s shared "
-        f"memory), {floor_80:.3f} ms (k {4 * K}'s)")
+    log(f"  yardsticks there: bf16 matmul+scale+mask+topk {lib['v3']:.3f} ms "
+        f"({lib['v2_k80']:.3f} at k {4 * K}), _int_mm+topk "
+        f"{lib['int8']:.3f} ms, bf16 matmul+amax {lib['dotonly']:.3f} ms")
     for name, r in res.items():
         log(f"    residency {name}: {r['smem']} B shared memory per CTA, "
             f"{r['ctas_per_sm']} CTAs per SM, {r['regs']} registers, "
             f"{r['grid']} CTAs in the grid")
-    log(f"  selection share of B2, (B2 - B4b) / B2: {share['k20']:.3f} at "
-        f"k {K}, {share['k80']:.3f} at k {4 * K}; with B4b at B2's "
-        f"residency: {share['k20_at_b2_residency']:.3f}, "
-        f"{share['k80_at_b2_residency']:.3f}")
+    log(f"  B2 above the tensor-core floor, (B2 - B4b) / B2: "
+        f"{share['k20']:.3f} at k {K}, {share['k80']:.3f} at k {4 * K}")
     return dict(max_abs_err={n: max(e) for n, e in errs.items()},
-                main_shape_ms=ms, selection_share=share, residency=res)
+                main_shape_ms=ms, main_shape_library_ms=lib,
+                selection_share=share, residency=res)
 
 
 def synthetic_pq_layout(n_rows, gen_np):
@@ -492,15 +492,25 @@ def probe_bias(bq, sub_list, gen_np, dev, unprobed=()):
                            sub_list).contiguous()
 
 
-def check_masked(tag, q, db, ids, bias, k, pos_of_id):
+def check_masked(tag, q, db, ids, bias, k, pos_of_id, twin_offset=0):
     """Kernel B3 against its plain version with bf16 queries (the kernel's
     numerics). A returned row that is masked or unprobed fails the check:
-    its recomputed score is ~NEG."""
+    its recomputed score is ~NEG. ``twin_offset``: row r + offset repeats
+    row r, so wherever the kernel returns r + offset it must return r
+    (the lower row wins the tie)."""
     import torch
     from nafp_tpu_torch.search import topk as T
     v, i = T.topk_ip_masked(q, db, ids, bias, k, LIST_TILE)
     pv, pi = T.topk_ip_masked_plain(q, db, ids, bias, k, LIST_TILE,
                                     compute_dtype=torch.bfloat16)
+    if twin_offset:
+        high = i >= twin_offset
+        has_twin = ((i - twin_offset)[:, :, None] == i[:, None, :]).any(2)
+        if not bool(has_twin[high].all()):
+            raise AssertionError(f"{tag}: a higher twin row was returned "
+                                 "without the lower one")
+        log(f"  {tag}: {int(high.sum())} higher twins returned, each with "
+            f"its lower twin")
     qb = q.to(torch.bfloat16).double()
 
     def score_at(row_ids):
@@ -551,6 +561,35 @@ def phase_kernel_b3(dev, gen):
     errs.append(check_masked(
         "B3 k=80 > 30 valid rows", unit_rows(9, 128, gen, dev), db[:2048],
         few, torch.zeros((9, 16), device=dev), 4 * K, few_pos))
+    # ties across chunks: the second half of the rows repeats the first, so
+    # every score comes twice, from rows 32,768 apart (other chunks), and
+    # equal scores meet the shared bound; the lower row must win each tie
+    half = unit_rows(32_768, 128, gen, dev).to(torch.bfloat16)
+    twin = torch.cat([half, half]).contiguous()
+    twin_ids = torch.arange(len(twin), dtype=torch.int32, device=dev)
+    for bq, k in ((128, 4 * K), (512, 41)):
+        errs.append(check_masked(
+            f"B3 ties across chunks Bq={bq} k={k} N={len(twin)}",
+            unit_rows(bq, 128, gen, dev), twin, twin_ids,
+            torch.zeros((bq, len(twin) // LIST_TILE), device=dev), k,
+            twin_ids.long(), twin_offset=len(half)))
+    del half, twin, twin_ids
+    # the other row widths: 16,384 rows, every 7th masked, half the
+    # subtiles probed
+    for d, bq, k in ((OTHER_D[0], 200, 4 * K), (OTHER_D[1], 64, K)):
+        ids_d = torch.arange(16_384, dtype=torch.int32, device=dev)
+        ids_d[::7] = -1
+        bias_d = torch.where(
+            torch.rand((bq, 16_384 // LIST_TILE), generator=gen, device=dev)
+            < 0.5, 0.0, T.NEG).to(torch.float32)
+        errs.append(check_masked(
+            f"B3 d={d} Bq={bq} k={k} N=16384", unit_rows(bq, d, gen, dev),
+            unit_rows(16_384, d, gen, dev).to(torch.bfloat16), ids_d, bias_d,
+            k, torch.arange(16_384, device=dev)))
+        occ = occupancy("topk_masked", "nafp_topk_masked_occupancy", d, k,
+                        n_out=3)
+        log(f"    residency B3 d {d} k {k}: {occ[0]} B shared memory per CTA, "
+            f"{occ[1]} CTAs per SM, {occ[2]} registers")
 
     q = unit_rows(512, 128, gen, dev)
     bias = probe_bias(512, sub_list, gen_np, dev)
@@ -561,9 +600,10 @@ def phase_kernel_b3(dev, gen):
         q, db, ids, bias, K, LIST_TILE, compute_dtype=torch.bfloat16), 5)
     rmask = torch.where(ids >= 0, 0.0, T.NEG).to(torch.float32)
     q16 = q.to(torch.bfloat16)
-    lib_ms = time_ms(lambda: torch.topk(
+    lib_ms, lib_ms_k80 = (time_ms(lambda: torch.topk(
         torch.matmul(q16, db.T).float()
-        + bias.repeat_interleave(LIST_TILE, 1) + rmask, K, dim=1), 10)
+        + bias.repeat_interleave(LIST_TILE, 1) + rmask, k, dim=1), 10)
+        for k in (K, 4 * K))
     n_sub = n_pad // LIST_TILE
     # the products the function needs: valid rows of the subtiles each
     # query probes (an unprobed or masked row scores <= NEG/2 whatever its
@@ -580,7 +620,18 @@ def phase_kernel_b3(dev, gen):
         f"({nbytes / PEAK_BYTES * 1e3:.4f} ms)")
     log(f"  B3 @ Bq 512: kernel {ms:.3f} ms (k {K}), {ms80:.3f} ms "
         f"(k {4 * K}), plain {plain_ms:.3f} ms, bf16 matmul+bias+topk "
-        f"{lib_ms:.3f} ms, bound {bound:.3f} ms")
+        f"{lib_ms:.3f} ms ({lib_ms_k80:.3f} ms at k {4 * K}), bound "
+        f"{bound:.3f} ms")
+    residency = {}
+    for k in (K, 4 * K):
+        occ = occupancy("topk_masked", "nafp_topk_masked_occupancy", 128, k,
+                        n_out=3)
+        grid = T._grid(512, n_pad, dev, T.MASKED_CTAS_PER_SM)[1] * -(
+            -512 // T.QB)
+        residency[f"k{k}"] = dict(zip(("smem", "ctas_per_sm", "regs",
+                                       "grid"), (*occ, grid)))
+        log(f"    residency B3 k {k}: {occ[0]} B shared memory per CTA, "
+            f"{occ[1]} CTAs per SM, {occ[2]} registers, {grid} scan CTAs")
     # how the scan and merge kernels' device time grows with k (ivfpq-rr
     # keeps 4 k = 80)
     k_sweep = {}
@@ -596,10 +647,10 @@ def phase_kernel_b3(dev, gen):
         source="nafp_tpu_torch/csrc/topk_masked.cu",
         replaces="nafp_tpu/search/pallas_topk.py:378 (topk_ip_pallas_masked)",
         max_abs_err=max(errs), ms=ms, ms_k80=ms80, k_sweep_ms=k_sweep,
-        plain_ms=plain_ms,
-        bound_ms=bound,
+        plain_ms=plain_ms, bound_ms=bound,
         bound_by="operations" if flops / PEAK_BF16 >= nbytes / PEAK_BYTES
-        else "bytes", library_ms=lib_ms,
+        else "bytes", library_ms=lib_ms, library_ms_k80=lib_ms_k80,
+        residency=residency,
         shape=f"Bq 512, N {n_pad} (bf16), d 128, k {K}; 40 of 256 lists "
               "probed")
 
@@ -1059,22 +1110,21 @@ def phase_bench(dev, b4_main):
     log(f"  B4b @ bench shape: kernel {dotonly['ms']:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bf16 matmul+amax {lib_ms:.3f} ms, bound "
         f"{bound:.3f} ms")
-    residency = b2_and_floor_residency(dev, bq, n, K)
-    floor_ms = time_ms(lambda: B.dotonly_blocks(
-        q, vecs8, blk, smem_min=residency["b2"]["smem"]), 3, warmup=1)
+    residency = dict(zip(("smem", "ctas_per_sm", "regs", "grid"), occupancy(
+        "bench_dotonly", "nafp_bench_dotonly_occupancy", bq, n, 128, blk,
+        n_out=4)))
     v0 = res["v0"]["ms"]
-    share = {"k20": (v0 - res["dotonly"]["ms"]) / v0,
-             "k20_at_b2_residency": (v0 - floor_ms) / v0}
-    log(f"  B4b at B2's residency @ bench shape: {floor_ms:.3f} ms; "
-        f"residency {residency}")
-    log(f"  selection share of B2 at the bench shape, (v0 - dotonly) / v0: "
-        f"{share['k20']:.3f}; with B4b at B2's residency "
-        f"{share['k20_at_b2_residency']:.3f}")
+    share = (v0 - res["dotonly"]["ms"]) / v0
+    log(f"  B4b @ bench shape: {residency['smem']} B shared memory per CTA, "
+        f"{residency['ctas_per_sm']} CTAs per SM, {residency['regs']} "
+        f"registers, {residency['grid']} CTAs ({n // blk} blocks); "
+        f"{flops / res['dotonly']['ms'] / 1e9:.1f} TFLOP/s")
+    log(f"  B2 above the tensor-core floor at the bench shape, (v0 - "
+        f"dotonly) / v0: {share:.3f}")
     del q16, v16, vecs8
     return dict(results=res, wall_s=wall, launches=launches,
                 variants=variants, dotonly=dotonly, v0_max_abs_err=v0_err,
-                selection_share=share, floor_at_b2_residency_ms=floor_ms,
-                residency=residency)
+                selection_share=share, residency=residency)
 
 
 # ---------------------------------------------------------------------------
@@ -1216,7 +1266,8 @@ def main() -> int:
             run: n[name] for run, n in main_path["launches_by_run"].items()
             if n[name]}
         kernels_line.append(r)
-    kernels_line[1].update(launches_bench=bench["launches"]["topk_ip_sq8"],
+    kernels_line[1].update(ms_k80=rec["b4"]["main_shape_ms"]["b2_k80"],
+                           launches_bench=bench["launches"]["topk_ip_sq8"],
                            ms_bench=bench["results"]["v0"]["ms"],
                            max_abs_err_bench=bench["v0_max_abs_err"])
     shape = (f"Bq {BENCH_BQ}, N {BENCH_N}, d 128, k {K}, blk {BENCH_BLK} "
@@ -1229,15 +1280,16 @@ def main() -> int:
         launches=bench["launches"]["run_variant"], shape=shape,
         variants=bench["variants"],
         main_shape_ms=rec["b4"]["main_shape_ms"],
-        selection_share_of_b2=rec["b4"]["selection_share"]))
+        main_shape_library_ms=rec["b4"]["main_shape_library_ms"],
+        b2_above_floor=rec["b4"]["selection_share"]))
     kernels_line.append(dict(
         name="run_dotonly (B4b)", route="cuda",
         source="nafp_tpu_torch/csrc/bench_dotonly.cu",
         replaces="extras/bench_sq8_kernel.py:201 (run_dotonly)",
-        **bench["dotonly"], launches=bench["launches"]["run_dotonly"],
-        shape=shape, selection_share_of_b2_bench=bench["selection_share"],
-        floor_at_b2_residency_ms_bench=bench["floor_at_b2_residency_ms"],
-        residency_bench=bench["residency"], residency=rec["b4"]["residency"]))
+        **bench["dotonly"], launches=bench["launches"]["run_dotonly"], shape=shape,
+        b2_above_floor_bench=bench["selection_share"],
+        residency_bench=bench["residency"], residency=rec["b4"]["residency"],
+        main_shape_library_ms=rec["b4"]["main_shape_library_ms"]))
     for r in kernels_line:
         r["max_err"] = r["max_abs_err"]
     summary = {k: v for k, v in main_path.items()

@@ -1,5 +1,5 @@
-// Kernel B4b: the streaming floor of kernel B2, its products with no
-// selection (hand-written for Hopper, sm_90a).
+// Kernel B4b: the streaming floor of the sq8 scan, its products with no
+// selection, on the bf16 tensor cores (hand-written for Hopper, sm_90a).
 //
 // Replaces the TPU kernel run_dotonly (extras/bench_sq8_kernel.py, body
 // _kern_dotonly): bf16(q) . bf16(row) for every query and int8 row, then a
@@ -9,152 +9,248 @@
 // product is dead code the compiler could drop; the wrapper returns the
 // last column, the reference's result.
 //
-// It stages q and the int8 tiles and runs the product loop of the shared
-// scan (topk_common.cuh: stage_queries, stage_rows, tile_products, the
-// code B2 runs). B2's time less this kernel's is then what B2's threshold
-// compare, selection and merge cost, together with what else differs: B2
-// stages scales and mask, keeps its k-lists and candidates in shared memory
-// (so fewer of its CTAs fit on an SM at large k) and runs a chunked grid.
-// smem_min reserves more shared memory per CTA, to run this floor at B2's
-// residency. A CTA holds QB queries and walks whole blk-row blocks
-// (grid-stride over the blocks); each warp covers all RB rows of a tile for
-// its QPT queries, so a block's maximum is a per-thread max followed by one
-// warp shuffle reduction. The grid is one wave of resident CTAs.
-//
 // Bound on an H100 at the bench's shape (Bq 512, N 8,388,608, d 128): 1.1
 // TFLOP, about 1.11 ms on the bf16 tensor cores (989 TFLOP/s), against
 // 1.07 GB of rows read and 8.4 MB of maxima written, 0.32 ms at 3.35 TB/s:
-// bound by operations. The products here are f32 FMAs on the CUDA cores
-// (67 TFLOP/s, at best about 16 ms), as in B2; wgmma is later work.
+// bound by operations.
+//
+// Design (mma_tile.cuh). A CTA holds QPB = 256 queries, 32 per warp, as
+// resident bf16 A fragments in registers (128, 16 per warp, when d > 128
+// and the K extent is 256: the same 64 registers), and walks whole blk-row
+// blocks (grid-stride over the blocks; the grid is one wave of resident
+// CTAs). The int8 rows stream through a ring of STAGES cp.async stages;
+// each 64-row tile is widened once per CTA (int8 -> bf16 is exact) into one
+// of two bf16 tiles, while the tensor cores take the other. A warp's
+// maximum over a tile's rows stays in registers; at the end of a block two
+// shuffles reduce it across the lanes that hold the block's other rows, and
+// one f32 per (query, block) is written.
 #include <algorithm>
 
-#include "topk_common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
-using nafp::Mode;
-using nafp::QB;
-using nafp::QPT;
-using nafp::RB;
-using nafp::THREADS;
+using namespace nafp;
+using namespace nafp::mma;
 
-__global__ void __launch_bounds__(THREADS)
-block_max_kernel(const float* __restrict__ q, const int8_t* __restrict__ db,
-                 int bq, int n, int d, int blk, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int dp = d + 4;  // the scan's row stride (topk_common.cuh)
-  float* qs = reinterpret_cast<float*>(smem);  // [QB][dp]
-  float* ds = qs + QB * dp;                    // [RB][dp]
-  const int tid = threadIdx.x;
-  const int tr = tid & 31, tq = tid >> 5;
-  const int q0 = blockIdx.y * QB;
-  const int n_blocks = n / blk;
-  const float* qp = qs + tq * QPT * dp;
-  const float* dp0 = ds + tr * dp;
-  const float* dp1 = ds + (tr + 32) * dp;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int STAGES = 4;                  // int8 tiles in flight
 
-  nafp::stage_queries<Mode::SQ8>(q, q0, bq, d, qs);
-  __syncthreads();
-  for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
-    float mx[QPT];
-#pragma unroll
-    for (int i = 0; i < QPT; ++i) mx[i] = -INFINITY;
-    const int end = (b + 1) * blk;
-    for (int t0 = b * blk; t0 < end; t0 += RB) {
-      nafp::stage_rows<Mode::SQ8>(db, t0, end, d, ds);
-      __syncthreads();
-      float acc[QPT][2];
-      nafp::tile_products<Mode::SQ8>(qp, dp0, dp1, d, dp, acc);
-#pragma unroll
-      for (int i = 0; i < QPT; ++i)
-        mx[i] = fmaxf(mx[i], fmaxf(acc[i][0], acc[i][1]));
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < QPT; ++i)
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
-    if (tr == 0) {
-#pragma unroll
-      for (int i = 0; i < QPT; ++i) {
-        const int qi = q0 + tq * QPT + i;
-        if (qi < bq) out[(size_t)qi * n_blocks + b] = mx[i];
-      }
-    }
+// The shapes that follow from the K extent DM.
+template <int DM>
+struct Cfg {
+  static constexpr int MT = 256 / DM;  // M-tiles (16 queries) per warp
+  static constexpr int QPB = WARPS * MT * 16;      // queries per CTA
+  static constexpr int RAW_BYTES = TILE_ROWS * DM;            // int8 tile
+  static constexpr int BF_ELEMS = TILE_ROWS * Tile<DM>::LD;   // bf16 tile
+  static constexpr size_t SMEM =
+      (size_t)STAGES * RAW_BYTES + 2 * Tile<DM>::BYTES;
+};
+
+// Start the cp.async copies of int8 rows row0 .. row0 + 63 (d bytes each,
+// CP bytes a copy: 16 when d is a multiple of 16, else 4; zero-filled to
+// DM) into `raw`.
+template <int DM, int CP>
+__device__ __forceinline__ void load_raw(int8_t* raw,
+                                         const int8_t* __restrict__ db,
+                                         int row0, int d) {
+  constexpr int CPR = DM / CP;  // copies per staged row
+  for (int e = threadIdx.x; e < TILE_ROWS * CPR; e += THREADS) {
+    const int r = e / CPR, c = e % CPR;
+    const bool in = CP * c < d;
+    cp_async<CP>(raw + r * DM + CP * c,
+                 in ? db + (size_t)(row0 + r) * d + CP * c : db,
+                 in ? CP : 0);
   }
 }
 
-// The launch's shape: dynamic shared memory (the staged q and row tiles, or
-// smem_min bytes if more: a larger reservation runs the same work at another
-// kernel's residency), the CTAs one SM holds, and the grid's x extent, one
-// wave of resident CTAs.
+// Widen a staged int8 tile into a bf16 tile (exact: |x| <= 127).
+template <int DM>
+__device__ __forceinline__ void widen(const int8_t* raw, __nv_bfloat16* bf) {
+  for (int e = threadIdx.x; e < TILE_ROWS * (DM / 16); e += THREADS) {
+    const int r = e / (DM / 16), c = e % (DM / 16);
+    const int4 v = *reinterpret_cast<const int4*>(raw + r * DM + 16 * c);
+    const uint32_t w[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z,
+                           (uint32_t)v.w};
+    uint32_t p[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // byte j of w[i], sign-extended
+      const uint32_t x = w[i];
+      p[2 * i] = pack_bf16((float)((int)(x << 24) >> 24),
+                           (float)((int)(x << 16) >> 24));
+      p[2 * i + 1] = pack_bf16((float)((int)(x << 8) >> 24),
+                               (float)((int)x >> 24));
+    }
+    uint4* dst = reinterpret_cast<uint4*>(bf + r * Tile<DM>::LD + 16 * c);
+    dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
+    dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
+  }
+}
+
+// Two CTAs per SM at K extent 128; one at 256 (shared memory).
+template <int DM, int CP>
+__global__ void __launch_bounds__(THREADS, DM == 128 ? 2 : 1)
+block_max_kernel(const float* __restrict__ q, const int8_t* __restrict__ db,
+                 int bq, int n, int d, int blk, float* __restrict__ out) {
+  constexpr int MT = Cfg<DM>::MT, RAW_BYTES = Cfg<DM>::RAW_BYTES;
+  constexpr int BF_ELEMS = Cfg<DM>::BF_ELEMS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* raw = reinterpret_cast<int8_t*>(smem);                // [STAGES]
+  __nv_bfloat16* bf =
+      reinterpret_cast<__nv_bfloat16*>(smem + STAGES * RAW_BYTES);  // [2]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.y * Cfg<DM>::QPB + warp * MT * 16;
+  const int n_blocks = n / blk, tpb = blk / TILE_ROWS;
+  const int my_blocks = (n_blocks - (int)blockIdx.x + (int)gridDim.x - 1) /
+                        (int)gridDim.x;
+  const int n_tiles = my_blocks * tpb;
+  auto tile_row = [&](int t) {
+    return (blockIdx.x + (t / tpb) * gridDim.x) * blk + (t % tpb) * TILE_ROWS;
+  };
+
+  uint32_t a[MT][Tile<DM>::KSTEPS][4];
+  load_a<MT, DM>(a, q, bq, d, q0);
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles)
+      load_raw<DM, CP>(raw + i * RAW_BYTES, db, tile_row(i), d);
+    cp_async_commit();
+  }
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  if (n_tiles > 0) widen<DM>(raw, bf);
+  if (STAGES - 1 < n_tiles)
+    load_raw<DM, CP>(raw + (STAGES - 1) * RAW_BYTES, db,
+                     tile_row(STAGES - 1), d);
+  cp_async_commit();
+
+  float mx[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) mx[mt][0] = mx[mt][1] = -INFINITY;
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // raw tile t + 1 has landed
+    __syncthreads();              // bf tile t widened; tile t - 1 consumed
+    if (t + 1 < n_tiles)
+      widen<DM>(raw + ((t + 1) % STAGES) * RAW_BYTES,
+                bf + ((t + 1) & 1) * BF_ELEMS);
+    if (t + STAGES < n_tiles)
+      load_raw<DM, CP>(raw + (t % STAGES) * RAW_BYTES, db,
+                       tile_row(t + STAGES), d);
+    cp_async_commit();
+
+    const uint32_t tile = smem_addr(bf + (t & 1) * BF_ELEMS);
+#pragma unroll
+    for (int nt = 0; nt < TILE_ROWS / 8; nt += 2) {
+      float acc[MT][2][4];
+      tile_mma<MT, 2, DM>(a, tile, nt, acc);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mx[mt][0] = fmaxf(mx[mt][0], fmaxf(acc[mt][j][0], acc[mt][j][1]));
+          mx[mt][1] = fmaxf(mx[mt][1], fmaxf(acc[mt][j][2], acc[mt][j][3]));
+        }
+    }
+    if (t % tpb == tpb - 1) {  // the block's last tile
+      const int b = blockIdx.x + (t / tpb) * gridDim.x;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float m = mx[mt][h];
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          const int qi = q0 + 16 * mt + (lane >> 2) + 8 * h;
+          if ((lane & 3) == 0 && qi < bq) out[(size_t)qi * n_blocks + b] = m;
+          mx[mt][h] = -INFINITY;
+        }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The launch's shape: the CTAs one SM holds, the grid (x: one wave of
+// resident CTAs over the blocks; y: query blocks) and the registers.
 struct Plan {
-  size_t smem;
   int per_sm;
-  int gx;
+  dim3 grid;
+  int regs;
 };
 
-cudaError_t plan_launch(int bq, int n, int d, int blk, int smem_min,
-                        Plan* p) {
-  p->smem = std::max(sizeof(float) * (size_t)(QB + RB) * (d + 4),
-                     (size_t)std::max(smem_min, 0));
+template <int DM, int CP>
+cudaError_t plan_launch(int bq, int n, int blk, Plan* p) {
+  constexpr size_t SMEM = Cfg<DM>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      block_max_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)p->smem);
+      block_max_kernel<DM, CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &p->per_sm, block_max_kernel, THREADS, p->smem);
+      &p->per_sm, block_max_kernel<DM, CP>, THREADS, SMEM);
   if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, block_max_kernel<DM, CP>);
+  if (err != cudaSuccess) return err;
+  p->regs = attr.numRegs;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int qblocks = (bq + QB - 1) / QB;
-  p->gx = std::max(1, std::min(n / blk, p->per_sm * sms / qblocks));
+  const int qblocks = (bq + Cfg<DM>::QPB - 1) / Cfg<DM>::QPB;
+  p->grid = dim3(std::max(1, std::min(n / blk, p->per_sm * sms / qblocks)),
+                 qblocks);
   return cudaSuccess;
 }
 
+template <int DM, int CP>
+cudaError_t launch(const float* q, const int8_t* vecs8, int bq, int n,
+                   int d, int blk, float* out, cudaStream_t s) {
+  Plan p;
+  const cudaError_t err = plan_launch<DM, CP>(bq, n, blk, &p);
+  if (err != cudaSuccess) return err;
+  block_max_kernel<DM, CP><<<p.grid, THREADS, Cfg<DM>::SMEM, s>>>(
+      q, vecs8, bq, n, d, blk, out);
+  return cudaGetLastError();
+}
+
 bool bad_args(int bq, int n, int d, int blk) {
-  return bq <= 0 || blk <= 0 || blk % RB || n % blk || d % 4 ||
-         d > nafp::MAX_D;
+  return bq <= 0 || blk <= 0 || blk % TILE_ROWS || n % blk || d <= 0 ||
+         d % 4 || d > MAX_D;
 }
 
 }  // namespace
 
 // q (bq, d) f32, vecs8 (n, d) int8, out (bq, n / blk) f32; blk a multiple of
-// RB that divides n; smem_min: shared memory to reserve per CTA (0: what the
-// kernel stages).
+// 64 that divides n; d a multiple of 4, at most MAX_D.
 extern "C" int nafp_bench_dotonly(const float* q, const int8_t* vecs8,
-                                  int bq, int n, int d, int blk, int smem_min,
-                                  float* out, void* stream) {
+                                  int bq, int n, int d, int blk, float* out,
+                                  void* stream) {
   if (bad_args(bq, n, d, blk)) return (int)cudaErrorInvalidValue;
   cudaGetLastError();  // clear any stale error from earlier work
-  Plan p;
-  const cudaError_t err = plan_launch(bq, n, d, blk, smem_min, &p);
-  if (err != cudaSuccess) return (int)err;
-  block_max_kernel<<<dim3(p.gx, (bq + QB - 1) / QB), THREADS, p.smem,
-                     static_cast<cudaStream_t>(stream)>>>(q, vecs8, bq, n, d,
-                                                          blk, out);
-  return (int)cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  return (int)with_shape<16, 4>(d, d % 16 == 0, [&](auto sh) {
+    using S = decltype(sh);
+    return launch<S::DM, S::CP>(q, vecs8, bq, n, d, blk, out, s);
+  });
 }
 
 // The launch nafp_bench_dotonly makes for these arguments: info[0] shared
 // memory per CTA in bytes, info[1] resident CTAs per SM, info[2] registers
 // per thread, info[3] CTAs in the grid.
 extern "C" int nafp_bench_dotonly_occupancy(int bq, int n, int d, int blk,
-                                            int smem_min, int* info) {
+                                            int* info) {
   if (bad_args(bq, n, d, blk)) return (int)cudaErrorInvalidValue;
   Plan p;
-  cudaError_t err = plan_launch(bq, n, d, blk, smem_min, &p);
+  const cudaError_t err = with_shape<16, 4>(d, d % 16 == 0, [&](auto sh) {
+    using S = decltype(sh);
+    return plan_launch<S::DM, S::CP>(bq, n, blk, &p);
+  });
   if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, block_max_kernel);
-  if (err != cudaSuccess) return (int)err;
-  info[0] = (int)p.smem;
+  info[0] = (int)(d <= 128 ? Cfg<128>::SMEM : Cfg<MAX_D>::SMEM);
   info[1] = p.per_sm;
-  info[2] = attr.numRegs;
-  info[3] = p.gx * ((bq + QB - 1) / QB);
+  info[2] = p.regs;
+  info[3] = p.grid.x * p.grid.y;
   return 0;
 }

@@ -52,7 +52,7 @@ extern "C" int nafp_bench_variant(const void* q, const int8_t* vecs8,
                                   int drain, int chunk_rows, int n_chunks,
                                   float* part_v, int* part_i, float* out_v,
                                   int* out_i, void* stream) {
-  const nafp::RowInputs rin{scales, rmask, nullptr, nullptr, 0};
+  const nafp::RowInputs rin{scales, rmask};
   const auto s = static_cast<cudaStream_t>(stream);
   if (int8_dot) {
     if (d % 16) return (int)cudaErrorInvalidValue;

@@ -1,0 +1,187 @@
+// The bf16 tensor-core product tile shared by kernels B3 (topk_masked.cu)
+// and B4b (bench_dotonly.cu), and the asynchronous copies that stage their
+// DB tiles.
+//
+// Layout. Queries are the M side of mma.sync.m16n8k16 (16 per M-tile) and
+// DB rows the N side (8 per n-tile); d is the K side, padded with zeros to
+// DM, the kernel's K extent: 128 for d <= 128, MAX_D = 256 above (each
+// kernel is instantiated for both and picks one per launch). A warp keeps
+// its queries' A fragments in registers for the whole launch (loaded once
+// from the f32 queries, rounded to bf16). DB rows sit in shared memory as
+// bf16 tiles of TILE_ROWS rows at a padded stride of Tile<DM>::LD elements
+// (272 or 528 bytes: the 8 row addresses of one ldmatrix fall in 8
+// different 16-byte bank groups), and each n-tile's B fragments come from
+// ldmatrix.x4. Products of bf16 values are exact in f32; the tensor cores
+// sum them in f32, in their own order.
+//
+// Why mma.sync and not wgmma: every kernel here is compiled only on the
+// card machine, so a layout fault shows only there; mma.sync's register
+// fragments are fixed per lane and checked against the plain versions
+// element by element, while wgmma adds shared-memory descriptors and
+// swizzle modes that fail silently when wrong.
+//
+// Staging: cp.async copies of 16-byte chunks, or of 8- or 4-byte chunks
+// when a row's bytes are not a multiple of 16 (any d that is a multiple of
+// 4), zero-filled past d, committed per tile into a ring of stages. Each
+// kernel is built for every (K extent, copy width) pair (Shape, with_shape).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "limits.cuh"
+
+namespace nafp {
+namespace mma {
+
+constexpr int TILE_ROWS = 64;         // DB rows per staged tile
+
+// The shapes that follow from the K extent DM.
+template <int DM>
+struct Tile {
+  static_assert(DM == 128 || DM == MAX_D, "K extent: 128 or MAX_D");
+  static constexpr int KSTEPS = DM / 16;    // mma k16 steps per dot product
+  static constexpr int LD = DM + 8;         // bf16 elements per staged row
+  static constexpr int BYTES = TILE_ROWS * LD * 2;  // one staged bf16 tile
+};
+
+// A kernel instance: K extent DM and the bytes of one staging copy, CP.
+template <int DM_, int CP_>
+struct Shape {
+  static constexpr int DM = DM_, CP = CP_;
+};
+
+// f(Shape<DM, CP>{}) for the instance that takes rows of width d: DM 128
+// for d <= 128, else MAX_D; CP = WIDE where `wide` (the row's bytes are a
+// multiple of WIDE), else NARROW. The copy width is a template parameter,
+// not a branch in the kernel: a branch between the two copy loops costs
+// the scans registers.
+template <int WIDE, int NARROW, typename F>
+cudaError_t with_shape(int d, bool wide, F&& f) {
+  if (d <= 128)
+    return wide ? f(Shape<128, WIDE>{}) : f(Shape<128, NARROW>{});
+  return wide ? f(Shape<MAX_D, WIDE>{}) : f(Shape<MAX_D, NARROW>{});
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// BYTES (16, 8 or 4) global -> shared, asynchronously; src_bytes < BYTES
+// zero-fills the rest (0: all zeros, the global address is not read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  static_assert(BYTES == 16 || BYTES == 8 || BYTES == 4, "cp.async size");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += a . b for one m16n8k16 tile: bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The A fragments of MT M-tiles of queries, rows row0 + 16 * mt + (0..15)
+// of q (bq, d) f32, rounded to bf16; zeros past bq and past d. Lane l holds
+// rows g = l / 4 and g + 8, columns 2 * (l % 4) + {0, 1} (+8) of each step.
+template <int MT, int DM>
+__device__ __forceinline__ void load_a(
+    uint32_t (&a)[MT][Tile<DM>::KSTEPS][4], const float* __restrict__ q,
+    int bq, int d, int row0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * mt + g + 8 * h;
+#pragma unroll
+      for (int s = 0; s < Tile<DM>::KSTEPS; ++s)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 16 * s + c2 + 8 * j;
+          float2 v = make_float2(0.f, 0.f);
+          if (row < bq && col < d)  // d is even: col + 1 < d too
+            v = *reinterpret_cast<const float2*>(q + (size_t)row * d + col);
+          a[mt][s][h + 2 * j] = pack_bf16(v.x, v.y);
+        }
+    }
+}
+
+// acc[mt][nt] = the products of M-tile mt with n-tile nt0 + nt of the
+// staged bf16 tile at shared address `tile` (rows at Tile<DM>::LD
+// elements). c[0], c[1]: query g, rows 2 * (lane % 4) + {0, 1} of the
+// n-tile; c[2], c[3]: query g + 8, the same rows.
+template <int MT, int NT, int DM>
+__device__ __forceinline__ void tile_mma(
+    const uint32_t (&a)[MT][Tile<DM>::KSTEPS][4], uint32_t tile, int nt0,
+    float (&acc)[MT][NT][4]) {
+  constexpr int LD = Tile<DM>::LD;
+  const int lane = threadIdx.x & 31;
+  // ldmatrix.x4: lane l addresses row l % 8 of matrix l / 8, i.e. column
+  // block 8 * (l / 8) of the 32 columns that two k steps cover
+  const uint32_t lane_off =
+      ((lane & 7) * LD + 8 * (lane >> 3)) * sizeof(__nv_bfloat16);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+    const uint32_t row_base =
+        tile + (nt0 + nt) * 8 * LD * sizeof(__nv_bfloat16) + lane_off;
+#pragma unroll
+    for (int s2 = 0; s2 < Tile<DM>::KSTEPS / 2; ++s2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, row_base + 32 * s2 * sizeof(__nv_bfloat16));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][nt], a[mt][2 * s2], b[0], b[1]);
+        mma_bf16(acc[mt][nt], a[mt][2 * s2 + 1], b[2], b[3]);
+      }
+    }
+  }
+}
+
+}  // namespace mma
+}  // namespace nafp

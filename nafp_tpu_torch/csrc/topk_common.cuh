@@ -1,7 +1,7 @@
 // Exact top-k of q . DB^T on Hopper: the scan and merge kernels shared by
-// topk_f32.cu (kernel B1), topk_sq8.cu (kernel B2), topk_masked.cu (kernel
-// B3) and bench_variant.cu (kernel B4a), and the staging and product steps
-// that bench_dotonly.cu (kernel B4b) shares with them.
+// topk_f32.cu (kernel B1), topk_sq8.cu (kernel B2) and bench_variant.cu
+// (kernel B4a). Kernels B3 (topk_masked.cu) and B4b (bench_dotonly.cu) have
+// their own, on the tensor-core tile of mma_tile.cuh.
 //
 // What it computes (the TPU kernels' semantics, nafp_tpu/search/
 // pallas_topk.py): for each query the k best rows by inner product, scores
@@ -33,9 +33,8 @@
 // 512 x 619,500 x 128 launch against 67 TFLOP/s; the DB is 0.3 GB). The
 // scores run on the CUDA cores from shared memory, with no cp.async/TMA
 // pipelining and no tensor cores, so the kernel reaches a fraction of the
-// f32 peak; B2 and B3 in particular could take their products on the bf16
-// tensor cores (wgmma), which this kernel does not use, and B3 could skip
-// the tiles that no query of a CTA probes. Those are later work.
+// f32 peak; B2 in particular could take its products on the bf16 tensor
+// cores, as B3 and B4b do. That is later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,41 +42,33 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "limits.cuh"
+
 namespace nafp {
 
-constexpr float NEG = -1e30f;        // additive mask value of the TPU kernels
-constexpr int NO_ROW = 0x7fffffff;   // row of an empty top-k slot
 constexpr int QB = 64;               // queries per scan CTA
 constexpr int RB = 64;               // DB rows per scan tile
 constexpr int THREADS = 256;         // scan CTA: 8 warps
 constexpr int QPT = 8;               // queries per thread (one warp's share)
 constexpr int MERGE_THREADS = 256;
-constexpr int MAX_K = 128;
-constexpr int MAX_D = 256;
 
 // What a DB row is and how its score is formed:
 //   F32:    f32 rows, every row below n valid;
 //   SQ8:    int8 rows, (round_bf16(q) . row) * scales[row] + rmask[row];
-//   MASKED: bf16 rows, (round_bf16(q) . row) + mask(ids[row]) +
-//           bias[q][row / list_tile], mask 0 where ids[row] >= 0, else NEG;
 //   SQ8_I8: int8 rows and int8 queries (quantised by the caller),
 //           float(q8 . row) * scales[row] + rmask[row], the dot product an
 //           exact s32 sum of __dp4a (|sum| <= 127 * 127 * d < 2^24 for
 //           d <= MAX_D, so its float is exact too).
-enum class Mode { F32, SQ8, MASKED, SQ8_I8 };
+enum class Mode { F32, SQ8, SQ8_I8 };
 
 // How the scan moves a tile's candidates into a query's running top-k:
 //   INSERT: a sorted list, worst first; one thread per query inserts its
-//           candidates in turn (B1, B2, B3, and B4a's v0/v3 merge);
+//           candidates in turn (B1, B2, and B4a's v0/v3 merge);
 //   DRAIN:  an unsorted list whose worst entry is kept at slot 0; one warp
 //           per query takes the best candidate and replaces the worst entry
 //           until no candidate beats it (B4a's v2 merge, drain_lists).
 // Slot 0 is the admission threshold either way.
 enum class Select { INSERT, DRAIN };
-
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
-}
 
 // Sorted list of k entries, worst first: lv[0] is the admission threshold.
 __device__ __forceinline__ void insert_sorted(float* lv, int* li, int k,
@@ -97,10 +88,6 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float bf16_bits_to_float(unsigned short b) {
-  return __uint_as_float((unsigned)b << 16);  // exact
-}
-
 // Shared-memory bytes of one scan CTA. A staged query or DB row takes
 // dp = d + 4 floats: 16-byte aligned rows and conflict-free float4 reads.
 // SQ8_I8 stages its int8 values at the start of each such row, where int4
@@ -111,8 +98,7 @@ inline size_t scan_smem_bytes(int d, int k) {
   return sizeof(float) * (size_t)(QB * dp + RB * dp + 2 * RB)  // q, DB, sc/rm
          + (sizeof(float) + sizeof(int)) * (size_t)QB * k      // top-k lists
          + (sizeof(float) + sizeof(int)) * (size_t)QB * RB     // candidates
-         + sizeof(int) * QB                                    // counts
-         + (MODE == Mode::MASKED ? sizeof(float) * QB : 0);    // tile bias
+         + sizeof(int) * QB;                                   // counts
 }
 
 inline size_t merge_smem_bytes(int k) {
@@ -121,7 +107,7 @@ inline size_t merge_smem_bytes(int k) {
 }
 
 // Stage queries q0 .. q0+QB-1 of q (Bq, d) into qs ([QB][d + 4]), zeros
-// past bq: f32, rounded to bf16 for SQ8 and MASKED; int8 for SQ8_I8.
+// past bq: f32, rounded to bf16 for SQ8; int8 for SQ8_I8.
 template <Mode MODE>
 __device__ __forceinline__ void stage_queries(const void* __restrict__ q,
                                               int q0, int bq, int d,
@@ -184,11 +170,6 @@ __device__ __forceinline__ void stage_rows(const void* __restrict__ db,
           const char4 b = reinterpret_cast<const char4*>(
               static_cast<const int8_t*>(db) + (size_t)row * d)[c];
           v = make_float4((float)b.x, (float)b.y, (float)b.z, (float)b.w);
-        } else if (MODE == Mode::MASKED) {
-          const ushort4 b = reinterpret_cast<const ushort4*>(
-              static_cast<const unsigned short*>(db) + (size_t)row * d)[c];
-          v = make_float4(bf16_bits_to_float(b.x), bf16_bits_to_float(b.y),
-                          bf16_bits_to_float(b.z), bf16_bits_to_float(b.w));
         } else {
           v = reinterpret_cast<const float4*>(
               static_cast<const float*>(db) + (size_t)row * d)[c];
@@ -328,21 +309,13 @@ __device__ __forceinline__ void drain_lists(float* lv, int* li,
   }
 }
 
-// Row-side inputs beyond the DB itself: SQ8 reads scales and rmask,
-// MASKED reads ids and bias (row-major (bq, n / list_tile)).
+// Row-side inputs beyond the DB itself: SQ8 and SQ8_I8 read scales and
+// rmask.
 struct RowInputs {
   const float* scales;
   const float* rmask;
-  const int* ids;
-  const float* bias;
-  int list_tile;
 };
 
-// MASKED: list_tile is a multiple of RB and every tile starts at a multiple
-// of RB (chunk_rows is one), so a tile lies inside one list_tile subtile and
-// takes a single bias value per query, staged in shared memory. Scores
-// <= NEG/2 (masked ids, unprobed subtiles) are never candidates; their
-// slots stay empty and come out as -1, as the TPU kernel reports them.
 template <Mode MODE, Select SEL>
 __global__ void __launch_bounds__(THREADS)
 scan_kernel(const void* __restrict__ q, const void* __restrict__ db,
@@ -360,7 +333,6 @@ scan_kernel(const void* __restrict__ q, const void* __restrict__ db,
   float* cv = reinterpret_cast<float*>(li + QB * k);  // [QB][RB]
   int* ci = reinterpret_cast<int*>(cv + QB * RB);
   int* cnt = ci + QB * RB;                            // [QB]
-  float* qbias = reinterpret_cast<float*>(cnt + QB);  // [QB], MASKED only
 
   const int tid = threadIdx.x;
   const int chunk = blockIdx.x;
@@ -392,17 +364,6 @@ scan_kernel(const void* __restrict__ q, const void* __restrict__ db,
         rm[r] = row < row_end ? rin.rmask[row] : NEG;
       }
     }
-    if (MODE == Mode::MASKED) {
-      for (int r = tid; r < RB; r += THREADS) {
-        const int row = t0 + r;
-        rm[r] = row < row_end && rin.ids[row] >= 0 ? 0.f : NEG;
-      }
-      const int n_sub = n / rin.list_tile;
-      const int sub = t0 / rin.list_tile;
-      for (int e = tid; e < QB; e += THREADS)
-        qbias[e] = q0 + e < bq ? rin.bias[(size_t)(q0 + e) * n_sub + sub]
-                               : NEG;
-    }
     __syncthreads();
 
     float acc[QPT][2];
@@ -418,10 +379,6 @@ scan_kernel(const void* __restrict__ q, const void* __restrict__ db,
         const int qi = tq * QPT + i;
         float s = acc[i][j];
         if (SCALED) s = s * sc[r] + rm[r];
-        if (MODE == Mode::MASKED) {
-          s = s + rm[r] + qbias[qi];
-          if (s <= NEG / 2) continue;
-        }
         if (q0 + qi < bq && better(s, row, lv[qi * k], li[qi * k])) {
           const int slot = atomicAdd(&cnt[qi], 1);
           cv[qi * RB + slot] = s;

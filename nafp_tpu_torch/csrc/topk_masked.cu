@@ -4,37 +4,421 @@
 // Replaces the TPU kernel topk_ip_pallas_masked (nafp_tpu/search/
 // pallas_topk.py, _kernel_masked -> _kernel_body with the bias expansion,
 // _merge_tile / _finish_sort), which IVFPQIndex.search calls once per
-// (DB chunk, query block) for `-i ivfpq` and `-i ivfpq-rr`.
+// (DB chunk, query block) for `-i ivfpq` (k 20) and `-i ivfpq-rr` (k 80).
 //
-// Numerics kept from the TPU: q is rounded to bf16, the bf16 rows convert
-// exactly, the products accumulate in f32; then the row mask (NEG where
-// ids[row] < 0) and the bias of the row's list_tile subtile (the IVF probe
-// mask, 0 or NEG) are added. Positions come back; the wrapper maps them
-// through the ids, as the JAX function does outside its pallas_call.
+// Numerics kept from the TPU: q is rounded to bf16, the bf16 rows are
+// multiplied exactly and summed in f32 (on the tensor cores); then the bias
+// of the row's list_tile subtile (the IVF probe mask, 0 or NEG) is added,
+// and a row whose id is < 0 is masked. A score <= NEG/2 is never a
+// candidate, so such slots come back as -1. Positions come back; the
+// wrapper maps them through the ids. Ties go to the lower row.
 //
 // Bound on an H100 at the main path's shape (Bq 512, N ~636k padded rows,
-// d 128, 40 of 256 lists probed): the function needs products only for the
-// valid rows of probed subtiles, about 16 % of the (query, row) pairs or
-// ~13 GFLOP (~0.013 ms on the bf16 tensor cores at 989 TFLOP/s), while it
-// reads ~163 MB of bf16 rows plus ~10 MB of bias and ids, about 0.05 ms at
-// 3.35 TB/s: bytes bound. This kernel does the products as f32 FMAs on the
-// CUDA cores (67 TFLOP/s, about 1.2 ms at best) over every row, probed or
-// not, so it sits far above that bound; wgmma products, skipping unprobed
-// tiles and fusing the PQ decode into the scan are the next steps. Design:
-// topk_common.cuh.
-#include "topk_common.cuh"
+// d 128, 40 of 256 lists probed): products are needed only for the valid
+// rows of probed subtiles, ~13 GFLOP (~0.013 ms at 989 TFLOP/s), while the
+// bf16 rows, ids and bias are ~176 MB, ~0.05 ms at 3.35 TB/s: bytes bound.
+//
+// Design. 1. scan: grid (n_chunks, ceil(Bq / QB)). A CTA keeps QB = 64
+// queries' bf16 A fragments in registers (each warp one 16-query M-tile and
+// half of the 64-row tile: mma_tile.cuh, K extent 128 for d <= 128, else
+// 256) and streams its chunk's bf16 rows and ids through a double-buffered
+// cp.async ring. The epilogue adds
+// the bias and the id mask to the accumulators and admits a score only if
+// it beats its query's current k-th best (sorted k-list in shared memory)
+// and is not below the query's shared bound; admitted scores go to a
+// per-query candidate list. Then every warp merges the candidates of 8
+// queries into their k-lists (warp_merge: each element's new place is its
+// rank among the candidates plus its rank in the list, a merge path).
+// 2. merge: one warp per query merges the n_chunks lists the same way.
+//
+// The shared bound. A chunk's list starts empty, so a chunked grid admits
+// k (1 + ln(rows / k)) scores per chunk and query. Once a CTA's k-list
+// holds k real entries, its k-th score is published, per query, into a
+// (Bq,) f32 array with an atomic max; every CTA re-reads it once a tile and
+// drops any score strictly below it, as the merge does. This is exact: any
+// k real rows have a k-th score <= the global k-th best, and a member of
+// the global top-k scores at least that, so it is never dropped; a score
+// equal to the bound is kept, so the lower-row rule still holds.
+#include <algorithm>
 
+#include "mma_tile.cuh"
+
+namespace {
+
+using namespace nafp;
+using namespace nafp::mma;
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int QB = 64;               // queries per scan CTA (4 M-tiles)
+constexpr int NT = TILE_ROWS / 8 / 2;  // n-tiles per warp: half the tile
+constexpr int MERGE_WARPS = 8;       // merge: one warp per query
+
+// *addr = max(*addr, v) for an f32 in device memory: non-negative floats
+// order as signed ints, negative ones inversely as unsigned ints.
+__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
+  if (__float_as_int(v) >= 0)
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
+}
+
+// One warp: L (lv, li; k entries, best first) becomes the best k of L and
+// the m candidates (cv, ci; 1 <= m <= 64, unsorted, rows not in L, scores >
+// NEG/2), best first. Each element's new slot is the number of elements of
+// L and C better than it (all distinct in the better() order, except L's
+// empty slots, which keep their order below every candidate).
+__device__ __forceinline__ void warp_merge(float* lv, int* li,
+                                           const float* cv, const int* ci,
+                                           int m, int k) {
+  const int lane = threadIdx.x & 31;
+  // slots 0, 1: candidates lane, lane + 32; slots 2..5: list entries lane +
+  // 32 j. An unused slot scores +inf: nothing is better, nothing written.
+  float v[6];
+  int id[6], r[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const int e = j < 2 ? lane + 32 * j : lane + 32 * (j - 2);
+    const bool used = j < 2 ? e < m : e < k;
+    v[j] = used ? (j < 2 ? cv[e] : lv[e]) : INFINITY;
+    id[j] = used ? (j < 2 ? ci[e] : li[e]) : NO_ROW;
+    r[j] = 0;
+  }
+  for (int f = 0; f < m; ++f) {  // candidates better than each slot's
+    const float fv = cv[f];
+    const int fi = ci[f];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) r[j] += better(fv, fi, v[j], id[j]);
+  }
+  int pos[6];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {  // a candidate: plus the list entries
+    int lo = 0, hi = v[j] == INFINITY ? 0 : k;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (better(lv[mid], li[mid], v[j], id[j])) lo = mid + 1;
+      else hi = mid;
+    }
+    pos[j] = v[j] == INFINITY ? k : r[j] + lo;
+  }
+#pragma unroll
+  for (int j = 2; j < 6; ++j)  // a list entry moves down by r; unmoved
+    pos[j] = r[j] ? lane + 32 * (j - 2) + r[j] : k;  // entries stay put
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+    if (pos[j] < k) {
+      lv[pos[j]] = v[j];
+      li[pos[j]] = id[j];
+    }
+  __syncwarp();
+}
+
+template <int DM>
+size_t scan_smem_bytes(int k) {
+  return 2 * (size_t)(Tile<DM>::BYTES + TILE_ROWS * sizeof(int))  // rows, ids
+         + (sizeof(float) + sizeof(int)) * (size_t)QB * k    // k-lists
+         + (sizeof(float) + sizeof(int)) * (size_t)QB * TILE_ROWS  // cands
+         + 6 * sizeof(float) * QB;  // cnt, thr_v, thr_i, bnd, qbias, pub
+}
+
+// Start the cp.async copies of rows row0 .. row0 + 63 (bf16, CP bytes a
+// copy: 16 when d is a multiple of 8, else 8; zero-filled to DM; zeros at
+// and past row_end) and their ids.
+template <int DM, int CP>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* rows, int* tids,
+                                          const __nv_bfloat16* __restrict__ db,
+                                          const int* __restrict__ ids,
+                                          int row0, int row_end, int d) {
+  constexpr int CH = CP / 2;    // values a copy
+  constexpr int CPR = DM / CH;  // copies per staged row
+  for (int e = threadIdx.x; e < TILE_ROWS * CPR; e += THREADS) {
+    const int r = e / CPR, c = e % CPR;
+    const bool in = CH * c < d && row0 + r < row_end;
+    cp_async<CP>(rows + r * Tile<DM>::LD + CH * c,
+                 in ? db + (size_t)(row0 + r) * d + CH * c : db,
+                 in ? CP : 0);
+  }
+  if (threadIdx.x < TILE_ROWS / 4) {
+    const int r = 4 * threadIdx.x;
+    const int n_in = min(4, max(0, row_end - (row0 + r)));
+    cp_async<16>(tids + r, n_in ? ids + row0 + r : ids, 4 * n_in);
+  }
+}
+
+// Two CTAs per SM at K extent 128 (up to k 80); one at 256, whose A
+// fragments take twice the registers.
+template <int DM, int CP>
+__global__ void __launch_bounds__(THREADS, DM == 128 ? 2 : 1)
+scan_kernel(const float* __restrict__ q,
+            const __nv_bfloat16* __restrict__ db,
+            const int* __restrict__ ids, const float* __restrict__ bias,
+            int bq, int n, int d, int k, int list_tile, int chunk_rows,
+            int n_chunks, float* bound, float* __restrict__ part_v,
+            int* __restrict__ part_i) {
+  constexpr int TE = TILE_ROWS * Tile<DM>::LD;  // elements of one tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* rows = reinterpret_cast<__nv_bfloat16*>(smem);  // [2]
+  int* tids = reinterpret_cast<int*>(rows + 2 * TE);             // [2][64]
+  float* lv = reinterpret_cast<float*>(tids + 2 * TILE_ROWS);    // [QB][k]
+  int* li = reinterpret_cast<int*>(lv + QB * k);
+  float* cv = reinterpret_cast<float*>(li + QB * k);        // [QB][64]
+  int* ci = reinterpret_cast<int*>(cv + QB * TILE_ROWS);
+  int* cnt = ci + QB * TILE_ROWS;                           // [QB]
+  float* thr_v = reinterpret_cast<float*>(cnt + QB);        // list[k - 1]
+  int* thr_i = reinterpret_cast<int*>(thr_v + QB);
+  float* bnd = reinterpret_cast<float*>(thr_i + QB);        // shared bound
+  float* qbias = bnd + QB;                                  // this tile's
+  float* pub = qbias + QB;                                  // last published
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int chunk = blockIdx.x;
+  const int q0 = blockIdx.y * QB;
+  const int row_begin = chunk * chunk_rows;
+  const int row_end = min(n, row_begin + chunk_rows);
+  const int n_tiles = (row_end - row_begin + TILE_ROWS - 1) / TILE_ROWS;
+  const int n_sub = n / list_tile;
+
+  for (int e = tid; e < QB * k; e += THREADS) {
+    lv[e] = NEG;
+    li[e] = NO_ROW;
+  }
+  for (int e = tid; e < QB; e += THREADS) {
+    cnt[e] = 0;
+    thr_v[e] = NEG;
+    thr_i[e] = NO_ROW;
+    pub[e] = NEG;
+  }
+  const int mt = warp & 3;              // this warp's 16 queries
+  const int nt0 = (warp >> 2) * NT;     // and its n-tiles of each tile
+  uint32_t a[1][Tile<DM>::KSTEPS][4];
+  load_a<1, DM>(a, q, bq, d, q0 + 16 * mt);
+  if (n_tiles > 0)
+    load_tile<DM, CP>(rows, tids, db, ids, row_begin, row_end, d);
+  cp_async_commit();
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int t0 = row_begin + t * TILE_ROWS;
+    if (t + 1 < n_tiles)  // its stage was consumed in tile t - 1
+      load_tile<DM, CP>(rows + ((t + 1) & 1) * TE,
+                    tids + ((t + 1) & 1) * TILE_ROWS, db, ids,
+                    t0 + TILE_ROWS, row_end, d);
+    cp_async_commit();
+    if (tid < QB) {
+      const bool live = q0 + tid < bq;
+      qbias[tid] = live ? bias[(size_t)(q0 + tid) * n_sub + t0 / list_tile]
+                        : NEG;
+      bnd[tid] = live ? __ldcg(bound + q0 + tid) : NEG;
+    }
+    cp_async_wait<1>();  // tile t has landed
+    __syncthreads();     // ... for every thread; lists merged
+
+    float acc[1][NT][4];
+    tile_mma<1, NT, DM>(a, smem_addr(rows + (t & 1) * TE), nt0, acc);
+    const int* ti = tids + (t & 1) * TILE_ROWS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = 16 * mt + (lane >> 2) + 8 * h;
+      const float qb = qbias[qi], tv = thr_v[qi];
+      const float floor_v = bnd[qi];
+      const int tvi = thr_i[qi];
+      if (qb <= NEG / 2) continue;  // unprobed subtile or no such query
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int r = (nt0 + nt) * 8 + 2 * (lane & 3) + j;
+          const int row = t0 + r;
+          const float s = acc[0][nt][2 * h + j] + qb;
+          if (row < row_end && ti[r] >= 0 && s > NEG / 2 && s >= floor_v &&
+              better(s, row, tv, tvi)) {
+            const int slot = atomicAdd(&cnt[qi], 1);
+            cv[qi * TILE_ROWS + slot] = s;
+            ci[qi * TILE_ROWS + slot] = row;
+          }
+        }
+    }
+    __syncthreads();  // candidates complete
+
+    for (int qi = warp; qi < QB; qi += WARPS) {
+      const int m = cnt[qi];
+      if (m == 0) continue;
+      float* L = lv + qi * k;
+      int* LI = li + qi * k;
+      warp_merge(L, LI, cv + qi * TILE_ROWS, ci + qi * TILE_ROWS, m, k);
+      if (lane == 0) {
+        const float kth = L[k - 1];
+        cnt[qi] = 0;
+        thr_v[qi] = kth;
+        thr_i[qi] = LI[k - 1];
+        if (kth > NEG / 2 && kth > pub[qi]) {  // k real entries
+          pub[qi] = kth;
+          atomic_max_f32(bound + q0 + qi, kth);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int e = tid; e < QB * k; e += THREADS) {
+    const int qi = e / k, j = e % k;
+    if (q0 + qi < bq) {
+      const size_t o = ((size_t)(q0 + qi) * n_chunks + chunk) * k + j;
+      part_v[o] = lv[e];
+      part_i[o] = li[e];
+    }
+  }
+}
+
+// One warp per query: the best k of its n_cand = n_chunks * k candidates,
+// filtered against the shared bound, sorted best first; positions -1 where
+// the score is <= NEG/2.
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
+merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
+             const float* __restrict__ bound, int bq, int n_cand, int k,
+             float* __restrict__ out_v, int* __restrict__ out_i) {
+  __shared__ float s_lv[MERGE_WARPS][MAX_K];
+  __shared__ int s_li[MERGE_WARPS][MAX_K];
+  __shared__ float s_cv[MERGE_WARPS][64];
+  __shared__ int s_ci[MERGE_WARPS][64];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * MERGE_WARPS + warp;
+  if (qi >= bq) return;  // whole warps only; no CTA-wide barrier below
+  float* L = s_lv[warp];
+  int* LI = s_li[warp];
+  for (int j = lane; j < k; j += 32) {
+    L[j] = NEG;
+    LI[j] = NO_ROW;
+  }
+  __syncwarp();
+  const float floor_v = bound[qi];
+  float tv = NEG;
+  int tvi = NO_ROW;
+  const size_t base = (size_t)qi * n_cand;
+  const unsigned below = (1u << lane) - 1;
+  for (int c0 = 0; c0 < n_cand; c0 += 64) {
+    int m = 0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = c0 + lane + 32 * j;
+      float v = NEG;
+      int i = NO_ROW;
+      if (e < n_cand) {
+        v = part_v[base + e];
+        i = part_i[base + e];
+      }
+      const bool take = v > NEG / 2 && v >= floor_v && better(v, i, tv, tvi);
+      const unsigned mask = __ballot_sync(0xffffffffu, take);
+      if (take) {
+        const int slot = m + __popc(mask & below);
+        s_cv[warp][slot] = v;
+        s_ci[warp][slot] = i;
+      }
+      m += __popc(mask);
+    }
+    __syncwarp();
+    if (m) {
+      warp_merge(L, LI, s_cv[warp], s_ci[warp], m, k);
+      tv = L[k - 1];
+      tvi = LI[k - 1];
+    }
+  }
+  for (int j = lane; j < k; j += 32) {
+    const float v = L[j];
+    out_v[(size_t)qi * k + j] = v;
+    out_i[(size_t)qi * k + j] = v <= NEG / 2 ? -1 : LI[j];
+  }
+}
+
+template <int DM, int CP>
+cudaError_t set_smem(int k, size_t* smem) {
+  *smem = scan_smem_bytes<DM>(k);
+  return cudaFuncSetAttribute(scan_kernel<DM, CP>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
+template <int DM, int CP>
+cudaError_t launch_scan(const float* q, const void* db, const int* ids,
+                        const float* bias, int bq, int n, int d, int k,
+                        int list_tile, int chunk_rows, int n_chunks,
+                        float* bound, float* part_v, int* part_i,
+                        cudaStream_t s) {
+  size_t smem;
+  const cudaError_t err = set_smem<DM, CP>(k, &smem);
+  if (err != cudaSuccess) return err;
+  scan_kernel<DM, CP><<<dim3(n_chunks, (bq + QB - 1) / QB), THREADS, smem, s>>>(
+      q, static_cast<const __nv_bfloat16*>(db), ids, bias, bq, n, d, k,
+      list_tile, chunk_rows, n_chunks, bound, part_v, part_i);
+  return cudaGetLastError();
+}
+
+// The scan's residency: info as nafp_topk_masked_occupancy.
+template <int DM, int CP>
+cudaError_t scan_occupancy(int k, int* info) {
+  size_t smem;
+  cudaError_t err = set_smem<DM, CP>(k, &smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, scan_kernel<DM, CP>);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, scan_kernel<DM, CP>, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  info[0] = (int)smem;
+  info[1] = per_sm;
+  info[2] = attr.numRegs;
+  return cudaSuccess;
+}
+
+bool bad_args(int bq, int n, int d, int k, int list_tile, int chunk_rows,
+              int n_chunks) {
+  return bq <= 0 || n < 0 || d <= 0 || d % 4 || d > MAX_D || k < 1 ||
+         k > MAX_K || list_tile <= 0 || list_tile % TILE_ROWS ||
+         n % list_tile || chunk_rows <= 0 || chunk_rows % TILE_ROWS ||
+         n_chunks != (std::max(n, 1) + chunk_rows - 1) / chunk_rows;
+}
+
+}  // namespace
+
+// q (bq, d) f32; db_bf16 (n, d) bf16; ids (n,) int32; bias (bq, n /
+// list_tile) f32; bound (bq,) f32, every entry NEG on entry (the shared
+// admission bound, raised by the scan); part_v/part_i (bq, n_chunks, k)
+// scratch; out_v/out_i (bq, k). d a multiple of 4, at most MAX_D;
+// list_tile and chunk_rows multiples of 64; n a multiple of list_tile.
 extern "C" int nafp_topk_masked(const float* q, const void* db_bf16,
                                 const int* ids, const float* bias, int bq,
                                 int n, int d, int k, int list_tile,
-                                int chunk_rows, int n_chunks, float* part_v,
-                                int* part_i, float* out_v, int* out_i,
-                                void* stream) {
-  if (list_tile <= 0 || list_tile % nafp::RB || n % list_tile ||
-      chunk_rows % nafp::RB)
+                                int chunk_rows, int n_chunks, float* bound,
+                                float* part_v, int* part_i, float* out_v,
+                                int* out_i, void* stream) {
+  if (bad_args(bq, n, d, k, list_tile, chunk_rows, n_chunks))
     return (int)cudaErrorInvalidValue;
-  const nafp::RowInputs rin{nullptr, nullptr, ids, bias, list_tile};
-  return nafp::launch_topk<nafp::Mode::MASKED>(
-      q, db_bf16, rin, bq, n, d, k, chunk_rows, n_chunks, part_v, part_i,
-      out_v, out_i, static_cast<cudaStream_t>(stream));
+  cudaGetLastError();  // clear any stale error from earlier work
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = with_shape<16, 8>(d, d % 8 == 0, [&](auto sh) {
+    using S = decltype(sh);
+    return launch_scan<S::DM, S::CP>(q, db_bf16, ids, bias, bq, n, d, k,
+                                     list_tile, chunk_rows, n_chunks, bound,
+                                     part_v, part_i, s);
+  });
+  if (err != cudaSuccess) return (int)err;
+  merge_kernel<<<(bq + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0,
+                 s>>>(part_v, part_i, bound, bq, n_chunks * k, k, out_v,
+                      out_i);
+  return (int)cudaGetLastError();
+}
+
+// The scan's residency at d and k: info[0] dynamic shared memory per CTA
+// in bytes, info[1] the CTAs one SM holds at once, info[2] registers per
+// thread. Returns a CUDA error code (0 on success).
+extern "C" int nafp_topk_masked_occupancy(int d, int k, int* info) {
+  if (d <= 0 || d % 4 || d > MAX_D || k < 1 || k > MAX_K)
+    return (int)cudaErrorInvalidValue;
+  return (int)with_shape<16, 8>(d, d % 8 == 0, [&](auto sh) {
+    using S = decltype(sh);
+    return scan_occupancy<S::DM, S::CP>(k, info);
+  });
 }

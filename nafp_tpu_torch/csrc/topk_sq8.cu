@@ -25,7 +25,7 @@ extern "C" int nafp_topk_sq8(const float* q, const int8_t* vecs8,
                              float* part_v, int* part_i, float* out_v,
                              int* out_i, void* stream) {
   return nafp::launch_topk<nafp::Mode::SQ8>(
-      q, vecs8, nafp::RowInputs{scales, rmask, nullptr, nullptr, 0}, bq, n, d,
+      q, vecs8, nafp::RowInputs{scales, rmask}, bq, n, d,
       k, chunk_rows, n_chunks, part_v, part_i, out_v, out_i,
       static_cast<cudaStream_t>(stream));
 }

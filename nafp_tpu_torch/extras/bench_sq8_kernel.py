@@ -18,13 +18,12 @@ Counterpart of ``extras/bench_sq8_kernel.py``:
   beside "v0", B2 itself.
 - ``run_dotonly`` (kernel B4b, ``csrc/bench_dotonly.cu``) replaces the TPU
   kernel of the same name, the streaming floor: ``bf16(q) · bf16(row)``
-  and a row max, with no scale, mask or selection. The reference returns
-  the maximum of the last ``blk``-row block only (every grid step
-  overwrites the same (Bq, 1) output block); the kernel keeps every
-  block's maximum, (Bq, N / blk), and ``run_dotonly`` returns the last
-  column unless asked for all. ``dotonly_blocks`` launches it, with more
-  shared memory per CTA if asked, to time the floor with no more CTAs per
-  SM than B2 fits.
+  and a row max, with no scale, mask or selection, on the bf16 tensor
+  cores. The reference returns the maximum of the last ``blk``-row block
+  only (every grid step overwrites the same (Bq, 1) output block); the
+  kernel keeps every block's maximum, (Bq, N / blk), and ``run_dotonly``
+  returns the last column unless asked for all. ``dotonly_blocks``
+  launches it.
 
 Semantics differing from the reference, on purpose: with ``int8_dot`` the
 reference scales the scores before its ``score <= NEG/2`` test, so an empty
@@ -73,7 +72,7 @@ LAUNCHES: Dict[str, int] = {"run_variant": 0, "run_dotonly": 0}
 
 _VARIANT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                      + [ctypes.c_void_p] * 5)
-_DOTONLY_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+_DOTONLY_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                      + [ctypes.c_void_p] * 2)
 
 
@@ -166,9 +165,7 @@ def run_variant(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
     if T._all_on_cpu(q, vecs8, scales, rmask):
         return run_variant_plain(q, vecs8, scales, rmask, k, int8_dot)
     bq = q.shape[0]
-    if d % (16 if int8_dot else 4) or d > T.MAX_D:
-        raise ValueError(f"d={d}: the kernel takes d % {16 if int8_dot else 4}"
-                         f" == 0, d <= {T.MAX_D}")
+    T._check_d(d, 16 if int8_dot else 4)
     T._check_cuda("q", q, torch.float32, (bq, d))
     T._check_cuda("vecs8", vecs8, torch.int8, (n, d))
     T._check_cuda("scales", scales, torch.float32, (n,))
@@ -197,27 +194,24 @@ def run_dotonly(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
     return out if all_blocks else out[:, -1:]
 
 
-def dotonly_blocks(q: torch.Tensor, vecs8: torch.Tensor, blk: int = 2048,
-                   smem_min: int = 0) -> torch.Tensor:
+def dotonly_blocks(q: torch.Tensor, vecs8: torch.Tensor, blk: int = 2048
+                   ) -> torch.Tensor:
     """Every ``blk``-row block's maximum of ``bf16(q) · row``, (Bq, N /
-    blk) f32: kernel B4b, which ``run_dotonly`` launches. ``smem_min``
-    reserves at least that many bytes of shared memory per CTA, so the
-    floor runs with as few CTAs per SM as another kernel (B2 at some k)
-    fits. On the CPU: the plain version."""
+    blk) f32: kernel B4b, which ``run_dotonly`` launches. On the CPU: the
+    plain version."""
     n, d = vecs8.shape
     _check_blk(n, blk)
     if T._all_on_cpu(q, vecs8):
         return run_dotonly_plain(q, vecs8, blk)
     bq = q.shape[0]
-    if d % 4 or d > T.MAX_D:
-        raise ValueError(f"d={d}: the kernel takes d % 4 == 0, d <= {T.MAX_D}")
+    T._check_d(d)
     T._check_cuda("q", q, torch.float32, (bq, d))
     T._check_cuda("vecs8", vecs8, torch.int8, (n, d))
     out = torch.empty((bq, n // blk), dtype=torch.float32, device=q.device)
     if bq:
         fn = kernels.function("bench_dotonly", _DOTONLY_ARGTYPES)
         with torch.cuda.device(q.device):
-            err = fn(q.data_ptr(), vecs8.data_ptr(), bq, n, d, blk, smem_min,
+            err = fn(q.data_ptr(), vecs8.data_ptr(), bq, n, d, blk,
                      out.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"bench_dotonly kernel launch failed: CUDA "

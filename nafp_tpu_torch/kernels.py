@@ -3,12 +3,14 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``_build/lib<name>.so`` at first use, then
 loaded with ``ctypes``: no PyTorch headers, so a build takes seconds. The
-build directory is listed in ``.gitignore``; a library older than any of
-its sources is rebuilt. Nothing here runs at import time.
+build directory is listed in ``.gitignore``; a library older than its
+source or any header of ``csrc/`` is rebuilt. Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -22,7 +24,6 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = ("topk_f32", "topk_sq8", "topk_masked", "bench_variant",
            "bench_dotonly")
-_HEADERS = ("topk_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,8 +47,10 @@ def library_path(name: str) -> str:
 
 
 def _sources(name: str):
-    return [os.path.join(CSRC, f"{name}.cu")] + [
-        os.path.join(CSRC, h) for h in _HEADERS]
+    """The files library ``name`` is built from: its source and every
+    header of ``csrc/`` (any of them may be included)."""
+    return [os.path.join(CSRC, f"{name}.cu")] + sorted(
+        glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def _stale(name: str) -> bool:

@@ -12,7 +12,9 @@ Counterpart of ``nafp_tpu/search/pallas_topk.py``:
   ``topk_ip_pallas_masked``: top-k over a decoded bf16 IVF-PQ chunk with
   per-row ids (−1 masks the row) and an additive bias per (query,
   ``list_tile``-row subtile), the IVF probe mask; positions are mapped
-  through the ids.
+  through the ids. Its products run on the bf16 tensor cores, and its
+  chunk CTAs share a per-query admission bound (a (Bq,) scratch the
+  wrapper allocates).
 
 Semantics kept from the TPU kernels: scores sorted descending; int32
 positions into ``db`` (B3: mapped through its ids); −1 wherever the score
@@ -33,11 +35,14 @@ from typing import Dict, Tuple
 import torch
 
 NEG = -1e30
-MAX_K = 128                 # csrc/topk_common.cuh MAX_K
-MAX_D = 256                 # csrc/topk_common.cuh MAX_D
+MAX_K = 128                 # csrc/limits.cuh MAX_K
+MAX_D = 256                 # csrc/limits.cuh MAX_D
 QB = 64                     # queries per scan CTA (csrc/topk_common.cuh)
 RB = 64                     # DB rows per scan tile (csrc/topk_common.cuh)
 CTAS_PER_SM = 4             # scan CTAs to launch per SM (two waves of two)
+# B3's scan fits two CTAs per SM up to k 80 at d <= 128
+# (csrc/topk_masked.cu); one wave
+MASKED_CTAS_PER_SM = 2
 PLAIN_LOGITS_BUDGET = 1 << 30   # bytes of one (block, N) plain score matrix
 
 LAUNCHES: Dict[str, int] = {"topk_ip": 0, "topk_ip_sq8": 0,
@@ -164,6 +169,13 @@ def _check_k(k: int) -> None:
                          "lives in shared memory")
 
 
+def _check_d(d: int, multiple: int = 4) -> None:
+    """The kernels' rule for the row width on the card."""
+    if d <= 0 or d % multiple or d > MAX_D:
+        raise ValueError(f"d={d}: the kernel takes d % {multiple} == 0, "
+                         f"0 < d <= {MAX_D}")
+
+
 def _all_on_cpu(*ts: torch.Tensor) -> bool:
     devs = {t.device.type for t in ts}
     if len(devs) != 1:
@@ -186,13 +198,25 @@ def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
-def _grid(bq: int, n: int, device: torch.device) -> Tuple[int, int]:
-    """(chunk_rows, n_chunks): enough scan CTAs for every SM even when
-    there are few query blocks."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _grid(bq: int, n: int, device: torch.device,
+          ctas_per_sm: int = CTAS_PER_SM) -> Tuple[int, int]:
+    """(chunk_rows, n_chunks) of a scan on ``device``: B1/B2/B4a's at the
+    default ``ctas_per_sm``, B3's at ``MASKED_CTAS_PER_SM``."""
+    return _plan_chunks(bq, n, _sm_count(device), ctas_per_sm)
+
+
+def _plan_chunks(bq: int, n: int, sms: int, ctas_per_sm: int
+                 ) -> Tuple[int, int]:
+    """(chunk_rows, n_chunks): about ``ctas_per_sm * sms`` scan CTAs of
+    QB queries each, so every SM has work even when there are few query
+    blocks; chunks are whole RB-row tiles."""
     qblocks = -(-bq // QB)
     tiles = max(1, -(-n // RB))
-    n_chunks = max(1, min(tiles, -(-CTAS_PER_SM * sms // qblocks)))
+    n_chunks = max(1, min(tiles, -(-ctas_per_sm * sms // qblocks)))
     chunk_rows = -(-tiles // n_chunks) * RB
     return chunk_rows, -(-max(n, 1) // chunk_rows)
 
@@ -203,7 +227,7 @@ _ARGTYPES = {
     "topk_sq8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 5,
     "topk_masked": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-    + [ctypes.c_void_p] * 5,
+    + [ctypes.c_void_p] * 6,
 }
 
 
@@ -213,13 +237,16 @@ def _lib_fn(name: str):
 
 
 def _launch(fn, counts: Dict[str, int], counter: str, q: torch.Tensor,
-            tensors, n: int, k: int, extra=()
+            tensors, n: int, k: int, extra=(), scratch=(),
+            ctas_per_sm: int = CTAS_PER_SM
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch a scan + merge C entry point ``fn``; ``extra`` are its int
-    arguments after k. Adds one to ``counts[counter]`` once it launched."""
+    arguments after k, ``scratch`` its tensors after n_chunks, and the
+    grid asks for ``ctas_per_sm`` scan CTAs per SM. Adds one to
+    ``counts[counter]`` once it launched."""
     bq, d = q.shape
     dev = q.device
-    chunk_rows, n_chunks = _grid(bq, n, dev)
+    chunk_rows, n_chunks = _grid(bq, n, dev, ctas_per_sm)
     part_v = torch.empty((bq, n_chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((bq, n_chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
@@ -227,7 +254,8 @@ def _launch(fn, counts: Dict[str, int], counter: str, q: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), *[t.data_ptr() for t in tensors], bq, n, d,
-                 k, *extra, chunk_rows, n_chunks, part_v.data_ptr(),
+                 k, *extra, chunk_rows, n_chunks,
+                 *[t.data_ptr() for t in scratch], part_v.data_ptr(),
                  part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
                  stream)
     if err:
@@ -247,8 +275,7 @@ def topk_ip(q: torch.Tensor, db: torch.Tensor, k: int
         return topk_ip_plain(q, db, k)
     bq, d = q.shape
     n = db.shape[0]
-    if d % 4 or d > MAX_D:
-        raise ValueError(f"d={d}: the kernel takes d % 4 == 0, d <= {MAX_D}")
+    _check_d(d)
     _check_cuda("q", q, torch.float32, (bq, d))
     _check_cuda("db", db, torch.float32, (n, d))
     if bq == 0:
@@ -270,8 +297,7 @@ def topk_ip_sq8(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
         return topk_ip_sq8_plain(q, vecs8, scales, rmask, k, torch.float32)
     bq, d = q.shape
     n = vecs8.shape[0]
-    if d % 4 or d > MAX_D:
-        raise ValueError(f"d={d}: the kernel takes d % 4 == 0, d <= {MAX_D}")
+    _check_d(d)
     _check_cuda("q", q, torch.float32, (bq, d))
     _check_cuda("vecs8", vecs8, torch.int8, (n, d))
     _check_cuda("scales", scales, torch.float32, (n,))
@@ -304,8 +330,7 @@ def topk_ip_masked(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
                          f"(Bq, N / list_tile) = ({bq}, {n} / {list_tile})")
     if _all_on_cpu(q, db, ids, bias):
         return topk_ip_masked_plain(q, db, ids, bias, k, list_tile)
-    if d % 4 or d > MAX_D:
-        raise ValueError(f"d={d}: the kernel takes d % 4 == 0, d <= {MAX_D}")
+    _check_d(d)
     _check_cuda("q", q, torch.float32, (bq, d))
     _check_cuda("db", db, torch.bfloat16, (n, d))
     _check_cuda("ids", ids, torch.int32, (n,))
@@ -313,6 +338,9 @@ def topk_ip_masked(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
     if bq == 0:
         return (torch.empty((0, k), device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
-    v, pos = _launch(_lib_fn("topk_masked"), LAUNCHES, "topk_ip_masked", q,
-                     [db, ids, bias], n, k, extra=(list_tile,))
-    return v, _map_ids(pos, ids)
+    # the admission bound the chunk CTAs share, raised by the scan
+    bound = torch.full((bq,), NEG, dtype=torch.float32, device=q.device)
+    out_v, out_i = _launch(_lib_fn("topk_masked"), LAUNCHES, "topk_ip_masked",
+                           q, [db, ids, bias], n, k, extra=(list_tile,),
+                           scratch=[bound], ctas_per_sm=MASKED_CTAS_PER_SM)
+    return out_v, _map_ids(out_i, ids)

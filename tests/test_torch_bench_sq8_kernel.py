@@ -209,8 +209,7 @@ def test_wrappers_cpu_route_is_plain(rng):
     blocks = B.run_dotonly_plain(args[0], args[1], BLK)
     assert torch.equal(B.run_dotonly(*args, blk=BLK, all_blocks=True), blocks)
     assert torch.equal(B.run_dotonly(*args, blk=BLK), blocks[:, -1:])
-    assert torch.equal(B.dotonly_blocks(args[0], args[1], BLK,
-                                        smem_min=1 << 17), blocks)
+    assert torch.equal(B.dotonly_blocks(args[0], args[1], BLK), blocks)
     assert B.LAUNCHES == {"run_variant": 0, "run_dotonly": 0}
     assert set(T.LAUNCHES.values()) == {0}
 
@@ -279,7 +278,22 @@ def test_kernels_match_plain_on_gpu():
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=0, atol=RAW_ATOL)
     assert torch.equal(B.run_dotonly(*args), got[:, -1:])
-    # B2's shared memory at k 80 holds B4b to B2's residency: same maxima
-    assert torch.equal(B.dotonly_blocks(args[0], args[1], smem_min=142080),
-                       got)
-    assert B.LAUNCHES == {"run_variant": 5, "run_dotonly": 3}
+    # 512 blocks of 128 rows over one wave of CTAs: several blocks per CTA;
+    # and 300 queries: two query blocks, the second ragged
+    q300 = torch.from_numpy(_queries(rng, 300, v8, sc)).to(dev)
+    # d 256 (the second K extent: 128 queries per CTA) and d 20 (4-byte
+    # row copies)
+    v8_256, v8_20 = (torch.from_numpy(
+        rng.integers(-127, 128, (n, d)).astype(np.int8)).to(dev)
+        for d in (256, 20))
+    q256, q20 = (torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal((300, d)).astype(np.float32)), dim=1).to(dev)
+        for d in (256, 20))
+    for qx, v8x, blk in ((args[0], args[1], 128), (q300, args[1], 128),
+                         (q300, args[1], 2048), (q256, v8_256, 128),
+                         (q20, v8_20, 2048)):
+        got = B.dotonly_blocks(qx, v8x, blk)
+        want = B.run_dotonly_plain(qx, v8x, blk)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=RAW_ATOL)
+    assert B.LAUNCHES == {"run_variant": 5, "run_dotonly": 7}

@@ -1,0 +1,146 @@
+"""The port's CUDA kernels as far as the CPU can check them: every C entry
+point's parameters against the ctypes ``argtypes`` its Python caller sets
+(a missing or misplaced ``c_void_p`` silently truncates a pointer on the
+card), the build's staleness rule, and the chunk plan of the scan
+wrappers with the SM count injected."""
+import ctypes
+import os
+import re
+import time
+
+import pytest
+
+from nafp_tpu_torch import kernels
+from nafp_tpu_torch.extras import bench_sq8_kernel as B
+from nafp_tpu_torch.search import topk as T
+
+# the argtypes each Python caller sets for a C entry point; the occupancy
+# queries are called through chip_smoke.py's ``occupancy``, which passes
+# ints and one int pointer
+WRAPPER_ARGTYPES = {
+    "nafp_topk_f32": T._ARGTYPES["topk_f32"],
+    "nafp_topk_sq8": T._ARGTYPES["topk_sq8"],
+    "nafp_topk_masked": T._ARGTYPES["topk_masked"],
+    "nafp_bench_variant": B._VARIANT_ARGTYPES,
+    "nafp_bench_dotonly": B._DOTONLY_ARGTYPES,
+}
+_EXTERN = re.compile(r'extern "C" int (nafp_\w+)\(([^)]*)\)', re.S)
+
+
+def _entry_points():
+    """{name: [parameter declarations]} of every ``extern "C" int nafp_*``
+    in csrc/*.cu."""
+    found = {}
+    for fname in sorted(os.listdir(kernels.CSRC)):
+        if fname.endswith(".cu"):
+            with open(os.path.join(kernels.CSRC, fname)) as f:
+                for name, params in _EXTERN.findall(f.read()):
+                    found[name] = [p.strip() for p in params.split(",")]
+    return found
+
+
+ENTRY_POINTS = _entry_points()
+
+
+def _kind(decl: str) -> str:
+    """'pointer' or 'int' for one C parameter declaration."""
+    if "*" in decl:
+        return "pointer"
+    if re.fullmatch(r"(const\s+)?int\s+\w+", decl):
+        return "int"
+    raise AssertionError(f"unexpected C parameter {decl!r}")
+
+
+def _ctypes_kind(t) -> str:
+    if t is ctypes.c_void_p or (isinstance(t, type)
+                                and issubclass(t, ctypes._Pointer)):
+        return "pointer"
+    if t is ctypes.c_int:
+        return "int"
+    raise AssertionError(f"unexpected argtype {t!r}")
+
+
+def test_every_entry_point_is_known():
+    assert len(ENTRY_POINTS) == 8
+    for name in ENTRY_POINTS:
+        assert name in WRAPPER_ARGTYPES or name.endswith("_occupancy"), name
+    assert set(WRAPPER_ARGTYPES) <= set(ENTRY_POINTS)
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_argtypes_match_c_signature(name):
+    c_kinds = [_kind(p) for p in ENTRY_POINTS[name]]
+    if name in WRAPPER_ARGTYPES:
+        py_kinds = [_ctypes_kind(t) for t in WRAPPER_ARGTYPES[name]]
+    else:   # occupancy queries: ints, then the int* they fill
+        py_kinds = ["int"] * (len(c_kinds) - 1) + ["pointer"]
+    assert c_kinds == py_kinds, (name, ENTRY_POINTS[name])
+
+
+def test_every_header_makes_a_library_stale(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or any csrc/ header is newer,
+    including a header added later."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(kernels, "CSRC", str(csrc))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(build))
+    t0 = time.time() - 100
+    for f in ("k.cu", "a.cuh", "b.cuh"):
+        (csrc / f).write_text("//\n")
+        os.utime(csrc / f, (t0, t0))
+    assert kernels._stale("k")                    # never built
+    so = build / "libk.so"
+    so.write_bytes(b"")
+    os.utime(so, (t0 + 10, t0 + 10))
+    assert kernels._sources("k") == [str(csrc / n)
+                                     for n in ("k.cu", "a.cuh", "b.cuh")]
+    assert not kernels._stale("k")
+    for f in ("b.cuh", "c.cuh"):                  # edited, then a new one
+        (csrc / f).write_text("//\n")
+        os.utime(csrc / f, (t0 + 20, t0 + 20))
+        assert kernels._stale("k")
+        os.utime(so, (t0 + 30, t0 + 30))
+        assert not kernels._stale("k")
+        t0 += 20
+
+
+def _old_grid(bq, n, sms):
+    """B1/B2's chunk plan as the scan wrappers computed it before B3 got a
+    plan of its own (CTAS_PER_SM scan CTAs per SM)."""
+    qblocks = -(-bq // T.QB)
+    tiles = max(1, -(-n // T.RB))
+    n_chunks = max(1, min(tiles, -(-T.CTAS_PER_SM * sms // qblocks)))
+    chunk_rows = -(-tiles // n_chunks) * T.RB
+    return chunk_rows, -(-max(n, 1) // chunk_rows)
+
+
+PLANS = [
+    # bq, n, sms
+    (512, 635_904, 132),     # B3 at the protocol's IVF-PQ store
+    (1024, 620_544, 132),    # B2's main shape
+    (1, 2048, 132),          # one query: more chunks than rows allow
+    (9, 0, 132),             # an empty chunk
+    (300, 16_384, 114),      # another card
+]
+
+
+@pytest.mark.parametrize("bq,n,sms", PLANS)
+@pytest.mark.parametrize("ctas", [T.CTAS_PER_SM, T.MASKED_CTAS_PER_SM])
+def test_chunk_plan(bq, n, sms, ctas):
+    """Chunks are whole 64-row tiles that cover N exactly once, and the
+    grid asks for about ``ctas`` CTAs per SM; B1/B2's plan is unchanged."""
+    chunk_rows, n_chunks = T._plan_chunks(bq, n, sms, ctas)
+    qblocks = -(-bq // T.QB)
+    assert chunk_rows % T.RB == 0 and chunk_rows > 0
+    assert (n_chunks - 1) * chunk_rows < max(n, 1) <= n_chunks * chunk_rows
+    assert n_chunks * qblocks <= ctas * sms + qblocks or n_chunks == 1
+    if ctas == T.CTAS_PER_SM:
+        assert (chunk_rows, n_chunks) == _old_grid(bq, n, sms)
+
+
+def test_b3_plan_at_the_protocol_shape():
+    """B3 at Bq 512 over the 635,904-row store on 132 SMs: 8 query blocks x
+    33 chunks = 264 CTAs, one wave of two per SM."""
+    assert T._plan_chunks(512, 635_904, 132, T.MASKED_CTAS_PER_SM) == (
+        19_328, 33)

@@ -235,6 +235,22 @@ def test_b3_wrapper_rejects_bad_arguments():
         T.topk_ip_masked(q, db, ids, torch.zeros(2, 3), 4, 128)
 
 
+@pytest.mark.parametrize("d,ok", [(4, True), (20, True), (128, True),
+                                  (256, True), (0, False), (6, False),
+                                  (260, False)])
+def test_card_row_width_rule(d, ok):
+    """Every kernel of the port takes any d that is a multiple of 4 up to
+    MAX_D on the card, the JAX kernels' range (int8 queries of B4a: a
+    multiple of 16)."""
+    if ok:
+        T._check_d(d)
+    else:
+        with pytest.raises(ValueError, match=f"d={d}"):
+            T._check_d(d)
+    with pytest.raises(ValueError, match="d % 16"):
+        T._check_d(20, 16)
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_gpu():
     """Each CUDA kernel against its plain version on the card, at the main
@@ -264,18 +280,38 @@ def test_kernels_match_plain_on_gpu():
     qb = q.to(torch.bfloat16).double().cpu().numpy()
     sim = (qb @ q8.T.astype(np.float64)) * sc + rmask
     _check_same(v.cpu(), i.cpu(), pv.cpu(), pi.cpu(), sim)
-    for bq, k, case in [(128, 20, "interior"), (1, 80, "unprobed_query"),
-                        (5, 40, "k_gt_valid")]:
-        qn, dbn, idn, bn = _masked_case(rng, bq, 16_384, 128, 128, case)
+    # d 256: the kernel's second K extent; d 20: 8-byte row copies
+    for bq, k, case, d in [(128, 20, "interior", 128),
+                           (1, 80, "unprobed_query", 128),
+                           (5, 40, "k_gt_valid", 128),
+                           (128, 80, "interior", 128), (200, 80, "ties", 128),
+                           (64, 33, "ties", 128), (200, 80, "interior", 256),
+                           (64, 20, "interior", 20)]:
+        qn, dbn, idn, bn = _masked_case(rng, bq, 16_384, d, 128, case)
+        if case == "ties":
+            # rows 8,192 apart repeat each other (other chunks), all valid
+            # and probed: equal scores meet the shared bound, and the
+            # lower row must win each tie
+            dbn[8192:] = dbn[:8192]
+            idn = np.arange(16_384, dtype=np.int32)
+            bn[:] = 0.0
         args = [torch.from_numpy(a).to(dev) for a in (qn, dbn, idn, bn)]
         args[1] = args[1].to(torch.bfloat16)
         v, i = T.topk_ip_masked(*args, k, 128)
         pv, pi = T.topk_ip_masked_plain(*args, k, 128,
                                         compute_dtype=torch.bfloat16)
-        # identical ids; bf16 products summed in f32 in another order
-        np.testing.assert_array_equal(i.cpu().numpy(), pi.cpu().numpy())
-        ok = pi >= 0
-        np.testing.assert_allclose(v[ok].cpu().numpy(), pv[ok].cpu().numpy(),
-                                   rtol=0, atol=ATOL)
+        # bf16 products summed in f32 in another order (the tensor cores'):
+        # ids equal but at near-ties, where the f64 scores at the kernel's
+        # ids equal the plain scores within ATOL (as chip_smoke.py judges)
+        qb = args[0].to(torch.bfloat16).double().cpu().numpy()
+        sim = (qb @ args[1].double().cpu().numpy().T
+               + np.repeat(bn, 128, axis=1))
+        sim_id = np.full((bq, 16_384), NEG)          # by row id
+        sim_id[:, idn[idn >= 0]] = sim[:, idn >= 0]
+        _check_same(v.cpu(), i.cpu(), pv.cpu(), pi.cpu(), sim_id)
+        if case == "ties":   # the lower twin wins: with a row, its twin
+            got = i.cpu().numpy()
+            for row in got:
+                assert np.isin(row[row >= 8192] - 8192, row).all()
     assert T.LAUNCHES == {"topk_ip": 3, "topk_ip_sq8": 1,
-                          "topk_ip_masked": 3}
+                          "topk_ip_masked": 8}
