@@ -8,15 +8,16 @@ the kernels are compiled for sm_90a). It builds the CUDA kernels from the
 sources in ``nafp_tpu_torch/csrc/``, then:
 
 1. device: the card's name, count and power limit, the kernel build time;
-2. kernels B1 (``topk_ip``), B2 (``topk_ip_sq8``), B3 (``topk_ip_masked``,
-   also with ties across its chunks), B4a (``run_variant``: v3, v2 and
-   int8) and B4b (``run_dotonly``) against their plain PyTorch versions at
-   the main path's shapes and edge cases (B3 and B4b also at d 256 and
-   d 20), timed with CUDA events beside
-   their bound and a one-call PyTorch yardstick (matmul + topk, which the
-   port never calls), at k 20 and k 80 for B2 and B3; B4a and B4b also at
-   B2's shape beside B2, with their yardsticks there, and v2 against B2 at
-   k 80; each launch's shared memory, CTAs per SM, registers and grid;
+2. kernels B1 (``topk_ip``), B2 (``topk_ip_sq8``), B3 (``topk_ip_masked``),
+   B4a (``run_variant``: v3, v2 and int8) and B4b (``run_dotonly``) against
+   their plain PyTorch versions at the main path's shapes and edge cases
+   (B2, B3 and B4a also with ties across their chunks, at k up to 128, and
+   with B4b at d 256 and d 20; B4a's int8 results equal the plain
+   version's exactly), timed with CUDA events beside their bound and a
+   one-call PyTorch yardstick (matmul + topk, which the port never calls),
+   at k 20 and k 80 for B2 and B3; B4a and B4b also at B2's shape beside
+   B2, with their yardsticks there, and v2 against B2 at k 80; each
+   launch's shared memory, CTAs per SM, registers and grid;
 3. the serving path through the CLI at full model width (random weights
    from a seed, written in the Flax layout as ``params.npz``): a seeded
    synthetic corpus -> ``generate`` -> a 619,500-row DB (the 10k-song
@@ -164,6 +165,50 @@ def check_topk(tag, v, i, pv, pi, score_at):
     return max(err, err_at)
 
 
+def check_twins(tag, i, offset):
+    """Rows r and r + offset repeat each other: wherever the kernel
+    returns r + offset it must return r too (the lower row wins the
+    tie)."""
+    high = i >= offset
+    has_twin = ((i - offset)[:, :, None] == i[:, None, :]).any(2)
+    if not bool(has_twin[high].all()):
+        raise AssertionError(f"{tag}: a higher twin row was returned "
+                             "without the lower one")
+    log(f"  {tag}: {int(high.sum())} higher twins returned, each with its "
+        "lower twin")
+
+
+def sq8_store(x, gen, dead_share):
+    """An sq8 store of rows x: int8 rows quantised per row, and a
+    dead_share of them tombstoned (scale 0, mask NEG)."""
+    import torch
+    from nafp_tpu_torch.search.topk import NEG
+    v8, sc = quantize(x)
+    dead = torch.rand(len(x), generator=gen, device=x.device) < dead_share
+    return (v8, torch.where(dead, 0.0, sc).contiguous(),
+            torch.where(dead, NEG, 0.0).to(torch.float32).contiguous())
+
+
+def sq8_residency(lib, bq, n, d, k, *flags):
+    """Shared memory per CTA, CTAs per SM, registers and grid of the sq8
+    scan instance that library ``lib``'s wrapper launches for (bq, n, d,
+    k) (B4a: flags int8_dot, drain)."""
+    import torch
+    from nafp_tpu_torch import kernels
+    from nafp_tpu_torch.search import topk as T
+    smem, per_sm, regs = kernels.occupancy(lib, d, k, *flags)
+    sms = T._sm_count(torch.device("cuda", 0))
+    n_chunks = T._plan_chunks(bq, n, sms, per_sm)[1]
+    return dict(smem=smem, ctas_per_sm=per_sm, regs=regs,
+                grid=n_chunks * -(-bq // T.QB))
+
+
+def log_residency(tag, r):
+    log(f"    residency {tag}: {r['smem']} B shared memory per CTA, "
+        f"{r['ctas_per_sm']} CTAs per SM, {r['regs']} registers, "
+        f"{r['grid']} CTAs in the grid")
+
+
 def unit_rows(n, d, gen, device):
     import torch
     x = torch.randn(n, d, generator=gen, device=device)
@@ -231,23 +276,30 @@ def phase_kernels(dev):
     scales = torch.where(tomb, 0.0, scales).contiguous()
     errs = []
 
-    def b2_check(tag, q, v8, sc, rm, k):
+    def b2_check(tag, q, v8, sc, rm, k, twin_offset=0):
         v, i = T.topk_ip_sq8(q, v8, sc, rm, k)
         pv, pi = T.topk_ip_sq8_plain(q, v8, sc, rm, k,
                                      compute_dtype=torch.bfloat16)
         if bool(((rm[i.clamp(min=0).long()] < 0) & (i >= 0)).any()):
             raise AssertionError(f"{tag}: a masked row was returned")
+        if twin_offset:
+            check_twins(tag, i, twin_offset)
         qb = q.to(torch.bfloat16).double()
         return check_topk(tag, v, i, pv, pi, lambda ids: torch.einsum(
             "bd,bkd->bk", qb, v8.double()[ids]) * sc.double()[ids]
             + rm.double()[ids])
 
-    for bq in (128, 1024):
-        errs.append(b2_check(f"B2 Bq={bq} N={SQ8_ROWS} (1% tombstones)",
-                             unit_rows(bq, 128, gen, dev), vecs8, scales,
-                             rmask, K))
+    for bq, k in ((128, K), (1024, K), (1024, 4 * K), (512, 128)):
+        errs.append(b2_check(f"B2 Bq={bq} k={k} N={SQ8_ROWS} (1% "
+                             "tombstones)", unit_rows(bq, 128, gen, dev),
+                             vecs8, scales, rmask, k))
     errs.append(b2_check("B2 Bq=1", unit_rows(1, 128, gen, dev), vecs8,
                          scales, rmask, K))
+    # every score negative at the main shape: negative queries against the
+    # rows' absolute values
+    errs.append(b2_check(f"B2 all-negative Bq=256 k={4 * K} N={SQ8_ROWS}",
+                         -unit_rows(256, 128, gen, dev).abs(), vecs8.abs(),
+                         scales, rmask, 4 * K))
     small8, small_sc = quantize(unit_rows(40, 128, gen, dev).abs())
     small_rm = torch.zeros(40, device=dev)
     small_rm[::3] = T.NEG
@@ -255,6 +307,23 @@ def phase_kernels(dev):
                          -unit_rows(5, 128, gen, dev).abs(), small8,
                          torch.where(small_rm < 0, 0.0, small_sc).contiguous(),
                          small_rm.contiguous(), 48))
+    # ties across chunks: rows 32,768 apart repeat each other (other
+    # chunks), and equal scores meet the shared bound
+    half = unit_rows(32_768, 128, gen, dev)
+    tw8, tw_sc, tw_rm = sq8_store(torch.cat([half, half]), gen, 0.0)
+    for bq, k in ((128, 4 * K), (512, 41)):
+        errs.append(b2_check(f"B2 ties across chunks Bq={bq} k={k} N=65536",
+                             unit_rows(bq, 128, gen, dev), tw8, tw_sc, tw_rm,
+                             k, twin_offset=len(half)))
+    del half
+    # the other row widths: 65,536 rows, 5% tombstones
+    for d, bq, k in ((OTHER_D[0], 200, 4 * K), (OTHER_D[1], 64, 128)):
+        errs.append(b2_check(f"B2 d={d} Bq={bq} k={k} N=65536",
+                             unit_rows(bq, d, gen, dev),
+                             *sq8_store(unit_rows(65_536, d, gen, dev), gen,
+                                        0.05), k))
+        log_residency(f"B2 d {d} k {k}",
+                      sq8_residency("topk_sq8", bq, 65_536, d, k))
     q = unit_rows(1024, 128, gen, dev)
     ms = time_ms(lambda: T.topk_ip_sq8(q, vecs8, scales, rmask, K), 20)
     plain_ms = time_ms(lambda: T.topk_ip_sq8_plain(
@@ -268,6 +337,10 @@ def phase_kernels(dev):
     nbytes = (SQ8_ROWS * 128 + 8.0 * SQ8_ROWS + 4.0 * 1024 * 128
               + 8.0 * 1024 * K)
     bound = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    residency = {f"k{k}": sq8_residency("topk_sq8", 1024, SQ8_ROWS, 128, k)
+                 for k in (K, 4 * K, 128)}
+    for k, r in residency.items():
+        log_residency(f"B2 {k}", r)
     rec["topk_ip_sq8"] = dict(
         name="topk_ip_sq8 (B2)", route="cuda",
         source="nafp_tpu_torch/csrc/topk_sq8.cu",
@@ -275,7 +348,7 @@ def phase_kernels(dev):
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by="operations" if flops / PEAK_BF16 >= nbytes / PEAK_BYTES
         else "bytes", library_ms=lib_ms, library_ms_k80=lib_ms_k80,
-        shape="Bq 1024, N 620544, d 128, k 20")
+        residency=residency, shape="Bq 1024, N 620544, d 128, k 20")
     log(f"  B2 @ Bq 1024: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"bf16 matmul+topk {lib_ms:.3f} ms ({lib_ms_k80:.3f} ms at k "
         f"{4 * K}), bound {bound:.3f} ms")
@@ -302,9 +375,11 @@ def b4a_score_at(q, v8, sc, rm, int8_dot):
                         * sc.double()[ids] + rm.double()[ids]) * qscale
 
 
-def check_b4a(tag, name, q, v8, sc, rm, k, blk=2048):
+def check_b4a(tag, name, q, v8, sc, rm, k, blk=2048, twin_offset=0):
     """Kernel B4a's variant ``name`` against its plain version with bf16
-    queries (the kernel's numerics); a masked row returned fails."""
+    queries (the kernel's numerics); a masked row returned fails. The int8
+    variant's sums are exact: its scores and ids must equal the plain
+    version's."""
     import torch
     from nafp_tpu_torch.extras import bench_sq8_kernel as B
     int8_dot = B4A[name].get("int8_dot", False)
@@ -313,6 +388,11 @@ def check_b4a(tag, name, q, v8, sc, rm, k, blk=2048):
                                  compute_dtype=torch.bfloat16)
     if bool(((rm[i.clamp(min=0).long()] < 0) & (i >= 0)).any()):
         raise AssertionError(f"{tag}: a masked row was returned")
+    if int8_dot and not (torch.equal(v, pv) and torch.equal(i, pi)):
+        raise AssertionError(f"{tag}: int8 results differ from the plain "
+                             "version's")
+    if twin_offset:
+        check_twins(tag, i, twin_offset)
     return check_topk(tag, v, i, pv, pi,
                       b4a_score_at(q, v8, sc, rm, int8_dot))
 
@@ -336,21 +416,6 @@ def check_b4b(tag, q, v8, blk):
     return err
 
 
-def occupancy(lib, fn_name, *args, n_out):
-    """The ints a kernel library's occupancy query ``fn_name(*args, info)``
-    writes into info[0 .. n_out-1]."""
-    import ctypes
-    from nafp_tpu_torch import kernels
-    fn = getattr(kernels.load(lib), fn_name)
-    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    info = (ctypes.c_int * n_out)()
-    err = fn(*args, info)
-    if err:
-        raise RuntimeError(f"{fn_name}{args}: CUDA error {err}")
-    return list(info)
-
-
 def phase_kernel_b4(dev, gen, vecs8, v16, scales, rmask):
     """B4a (v3, v2, int8) and B4b on B2's store (the main path's sq8 shape,
     1 % tombstones) against their plain versions, with edge cases; then
@@ -359,6 +424,7 @@ def phase_kernel_b4(dev, gen, vecs8, v16, scales, rmask):
     tensor-core floor: (B2 - B4b) / B2 is what B2 leaves above it. Each
     launch's shared memory, CTAs per SM, registers and grid are logged."""
     import torch
+    from nafp_tpu_torch import kernels
     from nafp_tpu_torch.extras import bench_sq8_kernel as B
     from nafp_tpu_torch.search import topk as T
 
@@ -369,9 +435,40 @@ def phase_kernel_b4(dev, gen, vecs8, v16, scales, rmask):
             errs[name].append(check_b4a(
                 f"B4a {name} Bq={bq} N={SQ8_ROWS} (1% tombstones)", name, q,
                 vecs8, scales, rmask, K))
-    errs["v2"].append(check_b4a("B4a v2 Bq=512 k=80", "v2",
-                                unit_rows(512, 128, gen, dev), vecs8, scales,
-                                rmask, 4 * K))
+    for k in (4 * K, 128):
+        q = unit_rows(512, 128, gen, dev)
+        for name in B4A:
+            errs[name].append(check_b4a(f"B4a {name} Bq=512 k={k}", name, q,
+                                        vecs8, scales, rmask, k))
+    neg_q = -unit_rows(256, 128, gen, dev).abs()
+    for name in B4A:
+        errs[name].append(check_b4a(
+            f"B4a {name} all-negative Bq=256 k={4 * K} N={SQ8_ROWS}", name,
+            neg_q, vecs8.abs(), scales, rmask, 4 * K))
+    # ties across chunks: rows 32,768 apart repeat each other
+    half = unit_rows(32_768, 128, gen, dev)
+    tw = sq8_store(torch.cat([half, half]), gen, 0.0)
+    for name in B4A:
+        errs[name].append(check_b4a(
+            f"B4a {name} ties across chunks Bq=128 k={4 * K} N=65536", name,
+            unit_rows(128, 128, gen, dev), *tw, 4 * K,
+            twin_offset=len(half)))
+    del half, tw
+    # the other row widths (int8 queries: d a multiple of 16)
+    for d, bq, k in ((OTHER_D[0], 200, 4 * K), (OTHER_D[1], 64, 128),
+                     (16, 64, 128)):
+        store = sq8_store(unit_rows(65_536, d, gen, dev), gen, 0.05)
+        q = unit_rows(bq, d, gen, dev)
+        for name, kw in B4A.items():
+            if d % 16 and kw.get("int8_dot", False):
+                continue
+            if d == 16 and not kw.get("int8_dot", False):
+                continue
+            errs[name].append(check_b4a(f"B4a {name} d={d} Bq={bq} k={k} "
+                                        "N=65536", name, q, *store, k))
+            log_residency(f"B4a {name} d {d} k {k}", sq8_residency(
+                "bench_variant", bq, 65_536, d, k,
+                int(kw.get("int8_dot", False)), int(name == "v2")))
     q1 = unit_rows(1, 128, gen, dev)
     for name in B4A:
         errs[name].append(check_b4a(f"B4a {name} Bq=1", name, q1, vecs8,
@@ -395,8 +492,8 @@ def phase_kernel_b4(dev, gen, vecs8, v16, scales, rmask):
         errs["dotonly"].append(check_b4b(
             f"B4b d={d} Bq=300 N=65536 blk 128", unit_rows(300, d, gen, dev),
             v8d, 128))
-        occ = occupancy("bench_dotonly", "nafp_bench_dotonly_occupancy", 300,
-                        65_536, d, 128, n_out=4)
+        occ = kernels.occupancy("bench_dotonly", 300, 65_536, d, 128,
+                                n_out=4)
         log(f"    residency B4b d {d}: {occ[0]} B shared memory per CTA, "
             f"{occ[1]} CTAs per SM, {occ[2]} registers, {occ[3]} CTAs")
 
@@ -425,14 +522,13 @@ def phase_kernel_b4(dev, gen, vecs8, v16, scales, rmask):
            "dotonly": time_ms(lambda: lib_block_max(q16, v16, 2048), 10)}
     lib["v2"] = lib["v3"]      # the same function
     keys = ("smem", "ctas_per_sm", "regs", "grid")
-    res = {"b4b": dict(zip(keys, occupancy(
-        "bench_dotonly", "nafp_bench_dotonly_occupancy", 1024, SQ8_ROWS,
-        128, 2048, n_out=4)))}
-    for k in (K, 4 * K):
-        occ = occupancy("topk_sq8", "nafp_topk_sq8_occupancy", 128, k,
-                        n_out=3)
-        res[f"b2_k{k}"] = dict(zip(keys, (*occ, T._grid(
-            1024, SQ8_ROWS, dev)[1] * -(-1024 // T.QB))))
+    res = {"b4b": dict(zip(keys, kernels.occupancy(
+        "bench_dotonly", 1024, SQ8_ROWS, 128, 2048, n_out=4)))}
+    for name, kw in B4A.items():
+        flags = (int(kw.get("int8_dot", False)), int(name == "v2"))
+        for k in (K, 4 * K):
+            res[f"b4a_{name}_k{k}"] = sq8_residency(
+                "bench_variant", 1024, SQ8_ROWS, 128, k, *flags)
     b2, b2_80 = min(ms["b2"], ms["b2_again"]), ms["b2_k80"]
     share = {"k20": (b2 - ms["dotonly"]) / b2,
              "k80": (b2_80 - ms["dotonly"]) / b2_80}
@@ -444,9 +540,7 @@ def phase_kernel_b4(dev, gen, vecs8, v16, scales, rmask):
         f"({lib['v2_k80']:.3f} at k {4 * K}), _int_mm+topk "
         f"{lib['int8']:.3f} ms, bf16 matmul+amax {lib['dotonly']:.3f} ms")
     for name, r in res.items():
-        log(f"    residency {name}: {r['smem']} B shared memory per CTA, "
-            f"{r['ctas_per_sm']} CTAs per SM, {r['regs']} registers, "
-            f"{r['grid']} CTAs in the grid")
+        log_residency(name, r)
     log(f"  B2 above the tensor-core floor, (B2 - B4b) / B2: "
         f"{share['k20']:.3f} at k {K}, {share['k80']:.3f} at k {4 * K}")
     return dict(max_abs_err={n: max(e) for n, e in errs.items()},
@@ -504,13 +598,7 @@ def check_masked(tag, q, db, ids, bias, k, pos_of_id, twin_offset=0):
     pv, pi = T.topk_ip_masked_plain(q, db, ids, bias, k, LIST_TILE,
                                     compute_dtype=torch.bfloat16)
     if twin_offset:
-        high = i >= twin_offset
-        has_twin = ((i - twin_offset)[:, :, None] == i[:, None, :]).any(2)
-        if not bool(has_twin[high].all()):
-            raise AssertionError(f"{tag}: a higher twin row was returned "
-                                 "without the lower one")
-        log(f"  {tag}: {int(high.sum())} higher twins returned, each with "
-            f"its lower twin")
+        check_twins(tag, i, twin_offset)
     qb = q.to(torch.bfloat16).double()
 
     def score_at(row_ids):
@@ -524,6 +612,7 @@ def phase_kernel_b3(dev, gen):
     """B3 on a synthetic IVF-PQ store of the protocol's size."""
     import numpy as np
     import torch
+    from nafp_tpu_torch import kernels
     from nafp_tpu_torch.search import topk as T
 
     gen_np = np.random.default_rng(SEED + 3)
@@ -586,8 +675,7 @@ def phase_kernel_b3(dev, gen):
             f"B3 d={d} Bq={bq} k={k} N=16384", unit_rows(bq, d, gen, dev),
             unit_rows(16_384, d, gen, dev).to(torch.bfloat16), ids_d, bias_d,
             k, torch.arange(16_384, device=dev)))
-        occ = occupancy("topk_masked", "nafp_topk_masked_occupancy", d, k,
-                        n_out=3)
+        occ = kernels.occupancy("topk_masked", d, k)
         log(f"    residency B3 d {d} k {k}: {occ[0]} B shared memory per CTA, "
             f"{occ[1]} CTAs per SM, {occ[2]} registers")
 
@@ -624,8 +712,7 @@ def phase_kernel_b3(dev, gen):
         f"{bound:.3f} ms")
     residency = {}
     for k in (K, 4 * K):
-        occ = occupancy("topk_masked", "nafp_topk_masked_occupancy", 128, k,
-                        n_out=3)
+        occ = kernels.occupancy("topk_masked", 128, k)
         grid = T._grid(512, n_pad, dev, T.MASKED_CTAS_PER_SM)[1] * -(
             -512 // T.QB)
         residency[f"k{k}"] = dict(zip(("smem", "ctas_per_sm", "regs",
@@ -1030,6 +1117,7 @@ def phase_bench(dev, b4_main):
     (seed 0), B4a and B4b against their plain versions, the plain versions'
     and the one-call yardsticks' times, and each kernel's bound."""
     import torch
+    from nafp_tpu_torch import kernels
     from nafp_tpu_torch.extras import bench_sq8_kernel as B
     from nafp_tpu_torch.search import topk as T
 
@@ -1061,6 +1149,8 @@ def phase_bench(dev, b4_main):
                                  compute_dtype=torch.bfloat16)
     v0_err = check_topk("B2 (the bench's v0) @ bench shape", v, i, pv, pi,
                         b4a_score_at(q, vecs8, scales, rmask, False))
+    v0_residency = sq8_residency("topk_sq8", bq, n, 128, K)
+    log_residency("B2 @ bench shape", v0_residency)
     del v, i, pv, pi
     variants = {}
     for name, kw in B4A.items():
@@ -1070,6 +1160,9 @@ def phase_bench(dev, b4_main):
         pv, pi = B.run_variant_plain(q, vecs8, scales, rmask, K,
                                      int8_dot=int8_dot,
                                      compute_dtype=torch.bfloat16)
+        if int8_dot and not (torch.equal(v, pv) and torch.equal(i, pi)):
+            raise AssertionError(f"{tag}: int8 results differ from the "
+                                 "plain version's")
         err = check_topk(tag, v, i, pv, pi,
                          b4a_score_at(q, vecs8, scales, rmask, int8_dot))
         del v, i, pv, pi
@@ -1092,7 +1185,10 @@ def phase_bench(dev, b4_main):
             ms=res[name]["ms"], plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound, bound_by="operations"
             if flops / peak >= sq8_bytes / PEAK_BYTES else "bytes",
-            max_abs_err=max(err, b4_main["max_abs_err"][name]))
+            max_abs_err=max(err, b4_main["max_abs_err"][name]),
+            residency=sq8_residency("bench_variant", bq, n, 128, K,
+                                    int(int8_dot), int(name == "v2")))
+        log_residency(tag, variants[name]["residency"])
         lib = lib_ms if isinstance(lib_ms, str) else f"{lib_ms:.3f} ms"
         log(f"  {tag}: kernel {res[name]['ms']:.3f} ms, plain "
             f"{plain_ms:.3f} ms, yardstick {lib}, bound {bound:.3f} ms")
@@ -1110,9 +1206,9 @@ def phase_bench(dev, b4_main):
     log(f"  B4b @ bench shape: kernel {dotonly['ms']:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bf16 matmul+amax {lib_ms:.3f} ms, bound "
         f"{bound:.3f} ms")
-    residency = dict(zip(("smem", "ctas_per_sm", "regs", "grid"), occupancy(
-        "bench_dotonly", "nafp_bench_dotonly_occupancy", bq, n, 128, blk,
-        n_out=4)))
+    residency = dict(zip(("smem", "ctas_per_sm", "regs", "grid"),
+                         kernels.occupancy("bench_dotonly", bq, n, 128, blk,
+                                           n_out=4)))
     v0 = res["v0"]["ms"]
     share = (v0 - res["dotonly"]["ms"]) / v0
     log(f"  B4b @ bench shape: {residency['smem']} B shared memory per CTA, "
@@ -1124,7 +1220,8 @@ def phase_bench(dev, b4_main):
     del q16, v16, vecs8
     return dict(results=res, wall_s=wall, launches=launches,
                 variants=variants, dotonly=dotonly, v0_max_abs_err=v0_err,
-                selection_share=share, residency=residency)
+                v0_residency=v0_residency, selection_share=share,
+                residency=residency)
 
 
 # ---------------------------------------------------------------------------
@@ -1269,7 +1366,8 @@ def main() -> int:
     kernels_line[1].update(ms_k80=rec["b4"]["main_shape_ms"]["b2_k80"],
                            launches_bench=bench["launches"]["topk_ip_sq8"],
                            ms_bench=bench["results"]["v0"]["ms"],
-                           max_abs_err_bench=bench["v0_max_abs_err"])
+                           max_abs_err_bench=bench["v0_max_abs_err"],
+                           residency_bench=bench["v0_residency"])
     shape = (f"Bq {BENCH_BQ}, N {BENCH_N}, d 128, k {K}, blk {BENCH_BLK} "
              "(the bench's default)")
     kernels_line.append(dict(

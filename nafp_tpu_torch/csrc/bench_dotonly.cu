@@ -48,46 +48,6 @@ struct Cfg {
       (size_t)STAGES * RAW_BYTES + 2 * Tile<DM>::BYTES;
 };
 
-// Start the cp.async copies of int8 rows row0 .. row0 + 63 (d bytes each,
-// CP bytes a copy: 16 when d is a multiple of 16, else 4; zero-filled to
-// DM) into `raw`.
-template <int DM, int CP>
-__device__ __forceinline__ void load_raw(int8_t* raw,
-                                         const int8_t* __restrict__ db,
-                                         int row0, int d) {
-  constexpr int CPR = DM / CP;  // copies per staged row
-  for (int e = threadIdx.x; e < TILE_ROWS * CPR; e += THREADS) {
-    const int r = e / CPR, c = e % CPR;
-    const bool in = CP * c < d;
-    cp_async<CP>(raw + r * DM + CP * c,
-                 in ? db + (size_t)(row0 + r) * d + CP * c : db,
-                 in ? CP : 0);
-  }
-}
-
-// Widen a staged int8 tile into a bf16 tile (exact: |x| <= 127).
-template <int DM>
-__device__ __forceinline__ void widen(const int8_t* raw, __nv_bfloat16* bf) {
-  for (int e = threadIdx.x; e < TILE_ROWS * (DM / 16); e += THREADS) {
-    const int r = e / (DM / 16), c = e % (DM / 16);
-    const int4 v = *reinterpret_cast<const int4*>(raw + r * DM + 16 * c);
-    const uint32_t w[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z,
-                           (uint32_t)v.w};
-    uint32_t p[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // byte j of w[i], sign-extended
-      const uint32_t x = w[i];
-      p[2 * i] = pack_bf16((float)((int)(x << 24) >> 24),
-                           (float)((int)(x << 16) >> 24));
-      p[2 * i + 1] = pack_bf16((float)((int)(x << 8) >> 24),
-                               (float)((int)x >> 24));
-    }
-    uint4* dst = reinterpret_cast<uint4*>(bf + r * Tile<DM>::LD + 16 * c);
-    dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
-    dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
-  }
-}
-
 // Two CTAs per SM at K extent 128; one at 256 (shared memory).
 template <int DM, int CP>
 __global__ void __launch_bounds__(THREADS, DM == 128 ? 2 : 1)
@@ -115,15 +75,16 @@ block_max_kernel(const float* __restrict__ q, const int8_t* __restrict__ db,
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_tiles)
-      load_raw<DM, CP>(raw + i * RAW_BYTES, db, tile_row(i), d);
+      load_raw<THREADS, DM, CP, DM, false>(raw + i * RAW_BYTES, db, tile_row(i),
+                                       n, d);
     cp_async_commit();
   }
   cp_async_wait<STAGES - 2>();
   __syncthreads();
-  if (n_tiles > 0) widen<DM>(raw, bf);
+  if (n_tiles > 0) widen<THREADS, DM, DM>(raw, bf);
   if (STAGES - 1 < n_tiles)
-    load_raw<DM, CP>(raw + (STAGES - 1) * RAW_BYTES, db,
-                     tile_row(STAGES - 1), d);
+    load_raw<THREADS, DM, CP, DM, false>(raw + (STAGES - 1) * RAW_BYTES, db,
+                                  tile_row(STAGES - 1), n, d);
   cp_async_commit();
 
   float mx[MT][2];
@@ -133,11 +94,11 @@ block_max_kernel(const float* __restrict__ q, const int8_t* __restrict__ db,
     cp_async_wait<STAGES - 2>();  // raw tile t + 1 has landed
     __syncthreads();              // bf tile t widened; tile t - 1 consumed
     if (t + 1 < n_tiles)
-      widen<DM>(raw + ((t + 1) % STAGES) * RAW_BYTES,
-                bf + ((t + 1) & 1) * BF_ELEMS);
+      widen<THREADS, DM, DM>(raw + ((t + 1) % STAGES) * RAW_BYTES,
+                             bf + ((t + 1) & 1) * BF_ELEMS);
     if (t + STAGES < n_tiles)
-      load_raw<DM, CP>(raw + (t % STAGES) * RAW_BYTES, db,
-                       tile_row(t + STAGES), d);
+      load_raw<THREADS, DM, CP, DM, false>(raw + (t % STAGES) * RAW_BYTES, db,
+                                    tile_row(t + STAGES), n, d);
     cp_async_commit();
 
     const uint32_t tile = smem_addr(bf + (t & 1) * BF_ELEMS);

@@ -1,6 +1,6 @@
-// The bf16 tensor-core product tile shared by kernels B3 (topk_masked.cu)
-// and B4b (bench_dotonly.cu), and the asynchronous copies that stage their
-// DB tiles.
+// The tensor-core product tiles shared by kernels B3 (topk_masked.cu), B4b
+// (bench_dotonly.cu) and the sq8 scan of B2 and B4a (sq8_scan.cuh), and the
+// asynchronous copies that stage their DB tiles.
 //
 // Layout. Queries are the M side of mma.sync.m16n8k16 (16 per M-tile) and
 // DB rows the N side (8 per n-tile); d is the K side, padded with zeros to
@@ -24,6 +24,13 @@
 // when a row's bytes are not a multiple of 16 (any d that is a multiple of
 // 4), zero-filled past d, committed per tile into a ring of stages. Each
 // kernel is built for every (K extent, copy width) pair (Shape, with_shape).
+// int8 rows are staged as they are (load_raw) and either widened into the
+// bf16 tile (widen: exact, |x| <= 127) or, for int8 queries, multiplied
+// as they are on mma.sync.m16n8k32 s8 x s8 -> s32 (tile_mma_i8). A k32 s8
+// fragment holds the same bytes of a row as a k16 bf16 fragment (4 bytes
+// at 4 * (lane % 4), and 16 bytes on), so ldmatrix.x4 over 16-byte row
+// segments feeds both; an int8 tile's rows sit Tile8<DM>::LD bytes apart
+// (DM + 16: again 8 different 16-byte bank groups per ldmatrix).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,6 +52,14 @@ struct Tile {
   static constexpr int KSTEPS = DM / 16;    // mma k16 steps per dot product
   static constexpr int LD = DM + 8;         // bf16 elements per staged row
   static constexpr int BYTES = TILE_ROWS * LD * 2;  // one staged bf16 tile
+};
+
+// The same for an int8 tile fed to the s8 tensor cores as it is.
+template <int DM>
+struct Tile8 {
+  static_assert(DM == 128 || DM == MAX_D, "K extent: 128 or MAX_D");
+  static constexpr int KSTEPS = DM / 32;    // mma k32 steps per dot product
+  static constexpr int LD = DM + 16;        // bytes per staged row
 };
 
 // A kernel instance: K extent DM and the bytes of one staging copy, CP.
@@ -102,6 +117,59 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Start the cp.async copies of int8 rows row0 .. row0 + 63 (d bytes each,
+// CP bytes a copy: 16 when d is a multiple of 16, else 4; zero-filled to
+// DM; BOUNDED: zeros at and past row_end, else every row is below it)
+// into `raw`, rows LDR bytes apart.
+template <int THREADS, int DM, int CP, int LDR, bool BOUNDED>
+__device__ __forceinline__ void load_raw(int8_t* raw,
+                                         const int8_t* __restrict__ db,
+                                         int row0, int row_end, int d) {
+  constexpr int CPR = DM / CP;  // copies per staged row
+  for (int e = threadIdx.x; e < TILE_ROWS * CPR; e += THREADS) {
+    const int r = e / CPR, c = e % CPR;
+    const bool in = CP * c < d && (!BOUNDED || row0 + r < row_end);
+    cp_async<CP>(raw + r * LDR + CP * c,
+                 in ? db + (size_t)(row0 + r) * d + CP * c : db,
+                 in ? CP : 0);
+  }
+}
+
+// The 4 int8 values of w (byte 0 first) as bf16 pairs, exactly and without
+// the quarter-rate int -> float conversions: byte b ^ 0x80 = b + 128 goes
+// into the mantissa of 2^23 (f32 bits 0x4B0000xx), 2^23 + 128 is
+// subtracted, and the result, an integer of at most 8 bits, is a bf16 in
+// the upper half of its f32 bits.
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b)) -
+           8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// Widen a staged int8 tile (rows LDR bytes apart) into a bf16 tile (exact:
+// |x| <= 128).
+template <int THREADS, int DM, int LDR>
+__device__ __forceinline__ void widen(const int8_t* raw, __nv_bfloat16* bf) {
+  for (int e = threadIdx.x; e < TILE_ROWS * (DM / 16); e += THREADS) {
+    const int r = e / (DM / 16), c = e % (DM / 16);
+    const int4 v = *reinterpret_cast<const int4*>(raw + r * LDR + 16 * c);
+    const uint32_t w[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z,
+                           (uint32_t)v.w};
+    uint32_t p[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) int8x4_to_bf16(w[i], p[2 * i], p[2 * i + 1]);
+    uint4* dst = reinterpret_cast<uint4*>(bf + r * Tile<DM>::LD + 16 * c);
+    dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
+    dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
+  }
+}
+
 // c += a . b for one m16n8k16 tile: bf16 operands, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float (&c)[4],
                                          const uint32_t (&a)[4], uint32_t b0,
@@ -110,6 +178,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b for one m16n8k32 tile: s8 operands, s32 accumulators (exact).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -178,6 +256,66 @@ __device__ __forceinline__ void tile_mma(
       for (int mt = 0; mt < MT; ++mt) {
         mma_bf16(acc[mt][nt], a[mt][2 * s2], b[0], b[1]);
         mma_bf16(acc[mt][nt], a[mt][2 * s2 + 1], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The s8 A fragments of MT M-tiles of int8 queries, rows row0 + 16 * mt +
+// (0..15) of q8 (bq, d), d a multiple of 16; zeros past bq and past d. Lane
+// l holds rows g = l / 4 and g + 8, bytes 4 * (l % 4) + (0..3) (+16) of
+// each k32 step: load_a's bytes, one int8 value a byte.
+template <int MT, int DM>
+__device__ __forceinline__ void load_a_i8(
+    uint32_t (&a)[MT][Tile8<DM>::KSTEPS][4], const int8_t* __restrict__ q8,
+    int bq, int d, int row0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c4 = 4 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * mt + g + 8 * h;
+#pragma unroll
+      for (int s = 0; s < Tile8<DM>::KSTEPS; ++s)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 32 * s + c4 + 16 * j;
+          a[mt][s][h + 2 * j] =
+              row < bq && col < d  // d % 16 == 0: all 4 bytes in, or none
+                  ? *reinterpret_cast<const uint32_t*>(q8 + (size_t)row * d +
+                                                       col)
+                  : 0u;
+        }
+    }
+}
+
+// tile_mma for int8 queries and a staged int8 tile at shared address
+// `tile` (rows at Tile8<DM>::LD bytes): exact s32 sums, the same (query,
+// row) places in acc as tile_mma's.
+template <int MT, int NT, int DM>
+__device__ __forceinline__ void tile_mma_i8(
+    const uint32_t (&a)[MT][Tile8<DM>::KSTEPS][4], uint32_t tile, int nt0,
+    int (&acc)[MT][NT][4]) {
+  constexpr int LD = Tile8<DM>::LD;
+  const int lane = threadIdx.x & 31;
+  // ldmatrix.x4: lane l addresses row l % 8 at byte 16 * (l / 8) of the 64
+  // bytes that two k32 steps cover
+  const uint32_t lane_off = (lane & 7) * LD + 16 * (lane >> 3);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
+    const uint32_t row_base = tile + (nt0 + nt) * 8 * LD + lane_off;
+#pragma unroll
+    for (int s2 = 0; s2 < Tile8<DM>::KSTEPS / 2; ++s2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, row_base + 64 * s2);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_s8(acc[mt][nt], a[mt][2 * s2], b[0], b[1]);
+        mma_s8(acc[mt][nt], a[mt][2 * s2 + 1], b[2], b[3]);
       }
     }
   }

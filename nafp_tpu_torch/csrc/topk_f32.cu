@@ -16,7 +16,7 @@ extern "C" int nafp_topk_f32(const float* q, const float* db, int bq, int n,
                              int d, int k, int chunk_rows, int n_chunks,
                              float* part_v, int* part_i, float* out_v,
                              int* out_i, void* stream) {
-  return nafp::launch_topk<nafp::Mode::F32>(
-      q, db, nafp::RowInputs{}, bq, n, d, k, chunk_rows, n_chunks, part_v,
-      part_i, out_v, out_i, static_cast<cudaStream_t>(stream));
+  return nafp::launch_topk(q, db, bq, n, d, k, chunk_rows, n_chunks, part_v,
+                           part_i, out_v, out_i,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -10,28 +10,35 @@
 // row's scale and then the mask (0, or NEG on pad rows and tombstones) is
 // added.
 //
-// Bound on an H100 at the main path's shape (Bq 1024, N 620,544, d 128):
-// 162.7 GFLOP; on the bf16 tensor cores (989 TFLOP/s) about 0.164 ms, and
-// the 84 MB of int8 rows, scales and mask take 0.025 ms at 3.35 TB/s. This
-// kernel does the products as f32 FMAs on the CUDA cores (67 TFLOP/s,
-// about 2.4 ms at best), so it sits far below that bound: moving the
-// products to wgmma on bf16 (exact for bf16 x int8) is the next step.
-// Design: topk_common.cuh.
-#include "topk_common.cuh"
+// The sq8 scan of sq8_scan.cuh with bf16 products on the tensor cores
+// (Prod::BF16: int8 tiles widened once per CTA) and the warp merge with the
+// shared admission bound (Sel::MERGE). Bound on an H100 at the main path's
+// shape (Bq 1024, N 620,544, d 128): 162.7 GFLOP, about 0.164 ms at 989
+// TFLOP/s; the 84 MB of int8 rows, scales and mask take 0.025 ms at 3.35
+// TB/s. What holds the kernel above it, and what its design does about
+// that: sq8_scan.cuh.
+#include "sq8_scan.cuh"
 
+using nafp::sq8::Prod;
+using nafp::sq8::Sel;
+
+// q (bq, d) f32; vecs8 (n, d) int8; scales, rmask (n,) f32; bound (bq,)
+// f32, every entry NEG on entry (the shared admission bound, raised by the
+// scan); part_v/part_i (bq, n_chunks, k) scratch; out_v/out_i (bq, k). d a
+// multiple of 4, at most MAX_D; chunk_rows a multiple of 64.
 extern "C" int nafp_topk_sq8(const float* q, const int8_t* vecs8,
                              const float* scales, const float* rmask, int bq,
-                             int n, int d, int k, int chunk_rows, int n_chunks,
-                             float* part_v, int* part_i, float* out_v,
-                             int* out_i, void* stream) {
-  return nafp::launch_topk<nafp::Mode::SQ8>(
-      q, vecs8, nafp::RowInputs{scales, rmask}, bq, n, d,
-      k, chunk_rows, n_chunks, part_v, part_i, out_v, out_i,
-      static_cast<cudaStream_t>(stream));
+                             int n, int d, int k, int chunk_rows,
+                             int n_chunks, float* bound, float* part_v,
+                             int* part_i, float* out_v, int* out_i,
+                             void* stream) {
+  return nafp::sq8::run<Prod::BF16, Sel::MERGE>(
+      q, vecs8, scales, rmask, bq, n, d, k, chunk_rows, n_chunks, bound,
+      part_v, part_i, out_v, out_i, stream);
 }
 
 // The scan's shared memory per CTA, resident CTAs per SM and registers per
-// thread at (d, k), into info[0..2] (nafp::scan_occupancy).
+// thread at (d, k), into info[0..2] (nafp::sq8::occupancy).
 extern "C" int nafp_topk_sq8_occupancy(int d, int k, int* info) {
-  return nafp::scan_occupancy<nafp::Mode::SQ8>(d, k, info);
+  return nafp::sq8::occupancy<Prod::BF16, Sel::MERGE>(d, k, info);
 }

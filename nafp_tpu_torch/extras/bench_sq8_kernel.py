@@ -6,15 +6,16 @@ Counterpart of ``extras/bench_sq8_kernel.py``:
 - ``run_variant`` (kernel B4a, ``csrc/bench_variant.cu``) replaces the TPU
   kernel of the same name: kernel B2's function (the exact top-k of
   ``(bf16(q) · row) · scale[row] + rmask[row]`` over an int8 store) with
-  the bench's switches. ``merge_mode`` "v0"/"v3" is B2's sorted insertion
-  and "v2" the reference's filter-then-drain merge, one warp per query;
+  the bench's switches, on B2's sq8 scan (``csrc/sq8_scan.cuh``).
+  ``merge_mode`` "v0"/"v3" is B2's warp merge (B2's own instance) and "v2"
+  the reference's filter-then-drain merge, one warp per query;
   ``int8_dot`` quantises each query to int8 (scale ``max|q| / 127``),
-  takes exact s8×s8→s32 products in the kernel and multiplies the scores
-  by the query's scale afterwards, as the reference does outside its
-  kernel. ``scale_mode`` "bcast" runs the same kernel as "slices": on the
+  takes exact s8×s8→s32 products on the int8 tensor cores and multiplies
+  the scores by the query's scale afterwards, as the reference does
+  outside its kernel. ``scale_mode`` "bcast" runs the same kernel as "slices": on the
   TPU it chooses how Mosaic lays out the per-row scale, and on the card a
   per-row scale costs one multiply per score either way. So the bench has
-  no "bcast" variant; it times "v3", B2's insertion built into B4a,
+  no "bcast" variant; it times "v3", B2's selection built into B4a,
   beside "v0", B2 itself.
 - ``run_dotonly`` (kernel B4b, ``csrc/bench_dotonly.cu``) replaces the TPU
   kernel of the same name, the streaming floor: ``bf16(q) · bf16(row)``
@@ -71,7 +72,7 @@ VARIANTS = {
 LAUNCHES: Dict[str, int] = {"run_variant": 0, "run_dotonly": 0}
 
 _VARIANT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                     + [ctypes.c_void_p] * 5)
+                     + [ctypes.c_void_p] * 6)
 _DOTONLY_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                      + [ctypes.c_void_p] * 2)
 
@@ -151,7 +152,7 @@ def run_variant(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
     q (Bq, d) f32; vecs8 (N, d) int8; scales and rmask (N,) f32 (0 /
     NEG). ``blk`` is the reference's row block: it must divide N, and the
     kernel's result does not depend on it. ``scale_mode`` "slices" and
-    "bcast" run the same kernel; ``merge_mode`` "v0"/"v3" inserts, "v2"
+    "bcast" run the same kernel; ``merge_mode`` "v0"/"v3" merges, "v2"
     drains; ``int8_dot`` takes int8 queries (d a multiple of 16). On the
     CPU: the plain version in f32, as the reference's interpret mode.
     Returns (scores f32, positions int32), each (Bq, k)."""
@@ -174,9 +175,10 @@ def run_variant(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
         return (torch.empty((0, k), device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
     q_in, qs = quantize_queries(q) if int8_dot else (q, None)
-    v, i = T._launch(kernels.function("bench_variant", _VARIANT_ARGTYPES),
-                     LAUNCHES, "run_variant", q_in, [vecs8, scales, rmask],
-                     n, k, extra=(int(int8_dot), int(merge_mode == "v2")))
+    v, i = T.launch_sq8(kernels.function("bench_variant", _VARIANT_ARGTYPES),
+                        "bench_variant", LAUNCHES, "run_variant", q_in, vecs8,
+                        scales, rmask, k,
+                        flags=(int(int8_dot), int(merge_mode == "v2")))
     return (v * qs[:, None] if int8_dot else v), i
 
 

@@ -17,7 +17,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -113,6 +113,21 @@ def function(name: str, argtypes) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def occupancy(name: str, *args: int, n_out: int = 3) -> List[int]:
+    """What ``nafp_<name>_occupancy(*args, info)`` of kernel library
+    ``name`` writes into info[0 .. n_out-1], for the current CUDA device:
+    a scan's shared memory per CTA in bytes, the CTAs one SM holds, its
+    registers per thread (and, for B4b, the CTAs of its grid)."""
+    fn = getattr(load(name), f"nafp_{name}_occupancy")
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * n_out)()
+    err = fn(*args, info)
+    if err:
+        raise RuntimeError(f"nafp_{name}_occupancy{args}: CUDA error {err}")
+    return list(info)
 
 
 def build_all() -> Tuple[float, Dict[str, str]]:

@@ -7,7 +7,10 @@ Counterpart of ``nafp_tpu/search/pallas_topk.py``:
   exact f32 top-k of ``q · dbᵀ``;
 - ``topk_ip_sq8`` (kernel B2, ``csrc/topk_sq8.cu``) replaces
   ``topk_ip_sq8_pallas``: exact top-k over an int8 store, dequantised on
-  the fly as ``(bf16(q) · row) · scale[row] + rmask[row]``;
+  the fly as ``(bf16(q) · row) · scale[row] + rmask[row]``. It runs the
+  sq8 scan of ``csrc/sq8_scan.cuh`` (B4a's too): products on the bf16
+  tensor cores, B3's selection and shared bound, and a grid of one wave
+  (``launch_sq8``);
 - ``topk_ip_masked`` (kernel B3, ``csrc/topk_masked.cu``) replaces
   ``topk_ip_pallas_masked``: top-k over a decoded bf16 IVF-PQ chunk with
   per-row ids (−1 masks the row) and an additive bias per (query,
@@ -30,16 +33,17 @@ one per wrapper call that reaches the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 NEG = -1e30
 MAX_K = 128                 # csrc/limits.cuh MAX_K
 MAX_D = 256                 # csrc/limits.cuh MAX_D
-QB = 64                     # queries per scan CTA (csrc/topk_common.cuh)
-RB = 64                     # DB rows per scan tile (csrc/topk_common.cuh)
-CTAS_PER_SM = 4             # scan CTAs to launch per SM (two waves of two)
+QB = 64                     # queries per scan CTA (every scan)
+RB = 64                     # DB rows per scan tile (every scan)
+CTAS_PER_SM = 4             # B1's scan CTAs to launch per SM (two waves)
 # B3's scan fits two CTAs per SM up to k 80 at d <= 128
 # (csrc/topk_masked.cu); one wave
 MASKED_CTAS_PER_SM = 2
@@ -204,28 +208,40 @@ def _sm_count(device: torch.device) -> int:
 
 def _grid(bq: int, n: int, device: torch.device,
           ctas_per_sm: int = CTAS_PER_SM) -> Tuple[int, int]:
-    """(chunk_rows, n_chunks) of a scan on ``device``: B1/B2/B4a's at the
-    default ``ctas_per_sm``, B3's at ``MASKED_CTAS_PER_SM``."""
+    """(chunk_rows, n_chunks) of a scan on ``device``: B1's at the
+    default ``ctas_per_sm``, B3's at ``MASKED_CTAS_PER_SM``, the sq8
+    scan's at the CTAs one SM holds (``launch_sq8``)."""
     return _plan_chunks(bq, n, _sm_count(device), ctas_per_sm)
 
 
 def _plan_chunks(bq: int, n: int, sms: int, ctas_per_sm: int
                  ) -> Tuple[int, int]:
-    """(chunk_rows, n_chunks): about ``ctas_per_sm * sms`` scan CTAs of
-    QB queries each, so every SM has work even when there are few query
-    blocks; chunks are whole RB-row tiles."""
+    """(chunk_rows, n_chunks): at most ``ctas_per_sm * sms`` scan CTAs of
+    QB queries each (the chunk count is rounded down: a second wave of a
+    few CTAs would nearly double the time), so every SM has work even when
+    there are few query blocks; at least one chunk, of whole RB-row
+    tiles."""
     qblocks = -(-bq // QB)
     tiles = max(1, -(-n // RB))
-    n_chunks = max(1, min(tiles, -(-ctas_per_sm * sms // qblocks)))
+    n_chunks = max(1, min(tiles, ctas_per_sm * sms // qblocks))
     chunk_rows = -(-tiles // n_chunks) * RB
     return chunk_rows, -(-max(n, 1) // chunk_rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, lib: str, *args: int) -> int:
+    """CTAs of library ``lib``'s scan that one SM holds for the
+    occupancy query's ``args``, on CUDA device ``device_index``."""
+    from nafp_tpu_torch import kernels
+    with torch.cuda.device(device_index):
+        return kernels.occupancy(lib, *args)[1]
 
 
 _ARGTYPES = {
     "topk_f32": [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 5,
     "topk_sq8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p] * 5,
+    + [ctypes.c_void_p] * 6,
     "topk_masked": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
     + [ctypes.c_void_p] * 6,
 }
@@ -263,6 +279,26 @@ def _launch(fn, counts: Dict[str, int], counter: str, q: torch.Tensor,
                            f"{err}")
     counts[counter] += 1
     return out_v, out_i
+
+
+def launch_sq8(fn, lib: str, counts: Dict[str, int], counter: str,
+               q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
+               rmask: torch.Tensor, k: int, flags: Sequence[int] = (),
+               ctas_per_sm: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the sq8 scan + merge, C entry point ``fn`` of library
+    ``lib`` (B2: "topk_sq8"; B4a: "bench_variant" with ``flags``
+    (int8_dot, drain)), on CUDA tensors the caller has checked: q (Bq, d)
+    f32 (B4a's int8_dot: int8). The grid asks for ``ctas_per_sm`` scan
+    CTAs per SM, by default as many as one SM holds for this instance (its
+    occupancy query): one wave. The chunk CTAs share a per-query admission
+    bound, a (Bq,) scratch filled with NEG."""
+    bq, d = q.shape
+    ctas = ctas_per_sm or _resident(q.device.index or 0, lib, d, k, *flags)
+    bound = torch.full((bq,), NEG, dtype=torch.float32, device=q.device)
+    return _launch(fn, counts, counter, q, [vecs8, scales, rmask],
+                   vecs8.shape[0], k, extra=tuple(flags), scratch=[bound],
+                   ctas_per_sm=ctas)
 
 
 def topk_ip(q: torch.Tensor, db: torch.Tensor, k: int
@@ -305,8 +341,8 @@ def topk_ip_sq8(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
     if bq == 0:
         return (torch.empty((0, k), device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
-    return _launch(_lib_fn("topk_sq8"), LAUNCHES, "topk_ip_sq8", q,
-                   [vecs8, scales, rmask], n, k)
+    return launch_sq8(_lib_fn("topk_sq8"), "topk_sq8", LAUNCHES,
+                      "topk_ip_sq8", q, vecs8, scales, rmask, k)
 
 
 def topk_ip_masked(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,

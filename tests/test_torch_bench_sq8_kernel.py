@@ -60,10 +60,10 @@ def jax_bench():
     return mod
 
 
-def _store(rng, n, case="plain"):
+def _store(rng, n, case="plain", d=128):
     """int8 rows, row scales in [0.9, 1.1] / 127 and a 0 / NEG row mask,
     as the bench makes them, with the case's masked rows."""
-    v8 = rng.integers(-127, 128, (n, 128)).astype(np.int8)
+    v8 = rng.integers(-127, 128, (n, d)).astype(np.int8)
     sc = (rng.uniform(0.9, 1.1, n) / 127).astype(np.float32)
     rm = np.zeros(n, np.float32)
     if case == "tombstones":
@@ -81,7 +81,7 @@ def _queries(rng, bq, v8, sc, case="plain"):
     makes them; all-negative scores for that case."""
     pick = rng.integers(0, len(v8), bq)
     q = v8[pick].astype(np.float32) * sc[pick, None] + 0.05 * (
-        rng.standard_normal((bq, 128)).astype(np.float32))
+        rng.standard_normal((bq, v8.shape[1])).astype(np.float32))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     if case == "all_negative":
         q = -np.abs(q)
@@ -136,11 +136,19 @@ def test_b4b_plain_matches_jax_last_block(jax_bench, rng):
 
 
 VARIANT_CASES = [
-    ("v0", "plain"), ("v2", "plain"), ("bcast", "plain"), ("int8", "plain"),
-    ("v0", "tombstones"), ("v2", "tombstones"), ("int8", "tombstones"),
-    ("v0", "all_negative"), ("v2", "all_negative"),
-    ("int8", "all_negative"),
-    ("v0", "k_gt_valid"), ("v2", "k_gt_valid"),
+    pytest.param(mode, case, 20, 128, id=f"{mode}-{case}") for mode, case in [
+        ("v0", "plain"), ("v2", "plain"), ("bcast", "plain"),
+        ("int8", "plain"), ("v0", "tombstones"), ("v2", "tombstones"),
+        ("int8", "tombstones"), ("v0", "all_negative"),
+        ("v2", "all_negative"), ("int8", "all_negative"),
+        ("v0", "k_gt_valid"), ("v2", "k_gt_valid")]
+] + [
+    # the kernel's larger k, its second K extent (d 256) and its narrow row
+    # copies (d 20; int8 queries take multiples of 16)
+    ("v0", "tombstones", 80, 256), ("v2", "tombstones", 80, 256),
+    ("int8", "tombstones", 80, 256), ("v0", "all_negative", 128, 20),
+    ("v2", "all_negative", 128, 20), ("int8", "all_negative", 128, 16),
+    ("v0", "k_gt_valid", 80, 256), ("v2", "k_gt_valid", 128, 20),
 ]
 # the reference's modes: v0, its bench variants v2, bcast and int8, and
 # the port's v3 (B2's insertion in B4a; the same function as bcast)
@@ -148,13 +156,14 @@ MODES = {"v0": dict(merge_mode="v0"),
          "bcast": dict(scale_mode="bcast", merge_mode="v3"), **B.VARIANTS}
 
 
-@pytest.mark.parametrize("mode,case", VARIANT_CASES)
-def test_b4a_plain_matches_jax(jax_bench, rng, mode, case):
+@pytest.mark.parametrize("mode,case,k,d", VARIANT_CASES)
+def test_b4a_plain_matches_jax(jax_bench, rng, mode, case, k, d):
     """Plain B4a (f32 q, the reference's interpret-mode numerics) against
     the reference's run_variant in interpret mode, with tombstones,
-    all-negative scores and k larger than the valid rows."""
-    n, bq, k = 4 * BLK, 24, 20
-    v8, sc, rm = _store(rng, n, case)
+    all-negative scores and k larger than the valid rows, at k up to 128
+    and d 16 to 256."""
+    n, bq = 4 * BLK, 24
+    v8, sc, rm = _store(rng, n, case, d)
     q = _queries(rng, bq, v8, sc, case)
     kw = MODES[mode]
     int8_dot = kw.get("int8_dot", False)
@@ -247,11 +256,39 @@ def test_main_nogpu_prints_results(capsys):
         B.main(["--nogpu", "--variants", "v9"])
 
 
+def _check_card(v, i, pv, pi, sim, int8_dot, case):
+    """A B4a kernel's result against its plain version on the card. int8:
+    exact s32 sums, so scores and ids equal the plain version's exactly.
+    bf16: products summed in f32 in the tensor cores' order, so ids equal
+    but at near-ties: -1 at the same slots, scores within SCORE_ATOL, the
+    f64 scores at the kernel's ids within SCORE_ATOL of the plain scores.
+    Twins (rows n/2 apart repeating each other): with a row, its lower
+    twin."""
+    got = i.cpu().numpy()
+    if int8_dot:
+        assert torch.equal(v, pv) and torch.equal(i, pi)
+    else:
+        want_v, want_i = pv.cpu().numpy(), pi.cpu().numpy()
+        np.testing.assert_array_equal(got < 0, want_i < 0)
+        ok = want_i >= 0
+        np.testing.assert_allclose(v.cpu().numpy()[ok], want_v[ok], rtol=0,
+                                   atol=SCORE_ATOL)
+        at = np.take_along_axis(sim, np.maximum(got, 0).astype(np.int64), 1)
+        np.testing.assert_allclose(at[ok], want_v[ok], rtol=0,
+                                   atol=SCORE_ATOL)
+    if case == "twins":
+        half = sim.shape[1] // 2
+        for row in got:
+            assert np.isin(row[row >= half] - half, row).all()
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_gpu():
     """B4a (v3, bcast, v2, int8) and B4b against their plain versions on
-    the card (bf16 q, the kernels' numerics); the launch counters count the
-    kernel calls."""
+    the card (bf16 q, the kernels' numerics): tombstones at k 20 / 80 /
+    128, every score negative, k > valid rows, d 256 and d 20 (int8: 16),
+    and twin rows in other chunks; the launch counters count the kernel
+    calls."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run with -m gpu on the card)")
     dev = torch.device("cuda", 0)
@@ -262,17 +299,40 @@ def test_kernels_match_plain_on_gpu():
     v8, sc, rm = _store(rng, n, "tombstones")
     q = _queries(rng, 200, v8, sc)
     args = [torch.from_numpy(a).to(dev) for a in (q, v8, sc, rm)]
-    for name, k in [("v3", 20), ("bcast", 20), ("v2", 20), ("v2", 80),
-                    ("int8", 20)]:
-        kw = MODES[name]
-        int8_dot = kw.get("int8_dot", False)
-        v, i = B.run_variant(*args, k=k, **kw)
-        pv, pi = B.run_variant_plain(*args, k=k, int8_dot=int8_dot,
-                                     compute_dtype=torch.bfloat16)
-        qn = q if int8_dot else (
-            args[0].to(torch.bfloat16).float().cpu().numpy())
-        _check_topk(v.cpu(), i.cpu(), pv.cpu(), pi.cpu(),
-                    _sim(qn, v8, sc, rm, int8_dot), int8_dot)
+    all_k = [("v3", 20), ("bcast", 20), ("v2", 20), ("v2", 80),
+             ("int8", 20), ("v3", 80), ("int8", 80), ("v3", 128),
+             ("v2", 128), ("int8", 128)]
+    bf16_only = [("v3", 80), ("v2", 128)]
+    cases = [(args, "tombstones", all_k)]
+    for case, d, bq, names in [
+            ("tombstones", 256, 100, [("v3", 80), ("v2", 80), ("int8", 80)]),
+            ("tombstones", 20, 100, bf16_only),
+            ("tombstones", 16, 100, [("int8", 128)]),
+            ("all_negative", 128, 64, [("v3", 128), ("v2", 80),
+                                       ("int8", 80)]),
+            ("k_gt_valid", 128, 9, [("v3", 48), ("v2", 48)]),
+            ("twins", 128, 128, [("v3", 80), ("v2", 80), ("int8", 41)])]:
+        v8x, scx, rmx = _store(rng, 8192, "plain" if case == "twins"
+                               else case, d)
+        if case == "twins":
+            v8x[4096:], scx[4096:] = v8x[:4096], scx[:4096]
+        qx = _queries(rng, bq, v8x, scx, case)
+        cases.append(([torch.from_numpy(a).to(dev)
+                       for a in (qx, v8x, scx, rmx)], case, names))
+    n_variant = 0
+    for xs, case, names in cases:
+        v8x, scx, rmx = (a.cpu().numpy() for a in xs[1:])
+        for name, k in names:
+            kw = MODES[name]
+            int8_dot = kw.get("int8_dot", False)
+            v, i = B.run_variant(*xs, k=k, **kw)
+            pv, pi = B.run_variant_plain(*xs, k=k, int8_dot=int8_dot,
+                                         compute_dtype=torch.bfloat16)
+            qn = xs[0].cpu().numpy() if int8_dot else (
+                xs[0].to(torch.bfloat16).float().cpu().numpy())
+            _check_card(v, i, pv, pi, _sim(qn, v8x, scx, rmx, int8_dot),
+                        int8_dot, case)
+            n_variant += 1
     got = B.run_dotonly(*args, all_blocks=True)
     want = B.run_dotonly_plain(args[0], args[1])
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -296,4 +356,4 @@ def test_kernels_match_plain_on_gpu():
         want = B.run_dotonly_plain(qx, v8x, blk)
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=0, atol=RAW_ATOL)
-    assert B.LAUNCHES == {"run_variant": 5, "run_dotonly": 7}
+    assert B.LAUNCHES == {"run_variant": n_variant, "run_dotonly": 7}

@@ -1,7 +1,7 @@
 """The port's CUDA kernels as far as the CPU can check them: every C entry
 point's parameters against the ctypes ``argtypes`` its Python caller sets
 (a missing or misplaced ``c_void_p`` silently truncates a pointer on the
-card), the build's staleness rule, and the chunk plan of the scan
+card), the build's staleness rule, and the chunk plans of the scan
 wrappers with the SM count injected."""
 import ctypes
 import os
@@ -61,7 +61,7 @@ def _ctypes_kind(t) -> str:
 
 
 def test_every_entry_point_is_known():
-    assert len(ENTRY_POINTS) == 8
+    assert len(ENTRY_POINTS) == 9
     for name in ENTRY_POINTS:
         assert name in WRAPPER_ARGTYPES or name.endswith("_occupancy"), name
     assert set(WRAPPER_ARGTYPES) <= set(ENTRY_POINTS)
@@ -106,8 +106,8 @@ def test_every_header_makes_a_library_stale(tmp_path, monkeypatch):
 
 
 def _old_grid(bq, n, sms):
-    """B1/B2's chunk plan as the scan wrappers computed it before B3 got a
-    plan of its own (CTAS_PER_SM scan CTAs per SM)."""
+    """B1's chunk plan as its wrapper computed it before the plan rounded
+    the chunk count down (CTAS_PER_SM scan CTAs per SM, rounded up)."""
     qblocks = -(-bq // T.QB)
     tiles = max(1, -(-n // T.RB))
     n_chunks = max(1, min(tiles, -(-T.CTAS_PER_SM * sms // qblocks)))
@@ -129,12 +129,13 @@ PLANS = [
 @pytest.mark.parametrize("ctas", [T.CTAS_PER_SM, T.MASKED_CTAS_PER_SM])
 def test_chunk_plan(bq, n, sms, ctas):
     """Chunks are whole 64-row tiles that cover N exactly once, and the
-    grid asks for about ``ctas`` CTAs per SM; B1/B2's plan is unchanged."""
+    grid asks for at most ``ctas`` CTAs per SM (one chunk at least); B1's
+    plan is unchanged at these shapes."""
     chunk_rows, n_chunks = T._plan_chunks(bq, n, sms, ctas)
     qblocks = -(-bq // T.QB)
     assert chunk_rows % T.RB == 0 and chunk_rows > 0
     assert (n_chunks - 1) * chunk_rows < max(n, 1) <= n_chunks * chunk_rows
-    assert n_chunks * qblocks <= ctas * sms + qblocks or n_chunks == 1
+    assert n_chunks * qblocks <= ctas * sms or n_chunks == 1
     if ctas == T.CTAS_PER_SM:
         assert (chunk_rows, n_chunks) == _old_grid(bq, n, sms)
 
@@ -144,3 +145,32 @@ def test_b3_plan_at_the_protocol_shape():
     33 chunks = 264 CTAs, one wave of two per SM."""
     assert T._plan_chunks(512, 635_904, 132, T.MASKED_CTAS_PER_SM) == (
         19_328, 33)
+
+
+@pytest.mark.parametrize("bq,n", [
+    (1024, 620_544),          # B2's main shape (-i sq8)
+    (512, 8_388_608),         # the sq8 kernel bench's shape
+    (512, 635_904),           # B3 at the protocol's IVF-PQ store
+    (300, 16_384),            # a query block short of full
+])
+@pytest.mark.parametrize("resident", [1, 2])
+def test_sq8_plan_fills_at_most_one_wave(bq, n, resident):
+    """B2/B4a's sq8 scan on 132 SMs, planned for the CTAs an SM holds:
+    chunks of whole 64-row tiles cover N once, and the grid fits one wave,
+    filling at least 15/16 of it (rounding the chunk count up gave B2's
+    shape 272 CTAs at two per SM: a second wave of 8)."""
+    sms, qblocks = 132, -(-bq // T.QB)
+    chunk_rows, n_chunks = T._plan_chunks(bq, n, sms, resident)
+    assert chunk_rows % T.RB == 0
+    assert (n_chunks - 1) * chunk_rows < n <= n_chunks * chunk_rows
+    assert n_chunks * qblocks <= resident * sms
+    assert n_chunks * qblocks >= resident * sms * 15 // 16
+    assert T._plan_chunks(1024, 620_544, 132, T.MASKED_CTAS_PER_SM)[1] == 16
+
+
+def test_sq8_plan_of_few_rows_and_many_queries():
+    """One chunk at least: a single tile, or more query blocks than a wave
+    holds (the grid then takes more than one wave)."""
+    assert T._plan_chunks(8, 30, 132, 2) == (64, 1)
+    assert T._plan_chunks(64 * 300, 4096, 132, 2) == (4096, 1)
+    assert T._plan_chunks(1, 0, 132, 1) == (64, 1)

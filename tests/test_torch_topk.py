@@ -72,22 +72,34 @@ def test_b1_negative_scores_beat_padding(rng):
     _check_same(v, i, want_v, want_i, q.astype(np.float64) @ db.T)
 
 
-@pytest.mark.parametrize("bq,n,k,tomb", [
-    (8, 4096, 20, 0.0),
-    (8, 2048, 16, 0.05),   # tombstones inside the store
-    (3, 2048, 20, 0.995),  # more masked rows than k: ids -1 past the valid
+@pytest.mark.parametrize("bq,n,k,tomb,d,negative", [
+    pytest.param(8, 4096, 20, 0.0, 128, False, id="8-4096-20-0.0"),
+    # tombstones inside the store
+    pytest.param(8, 2048, 16, 0.05, 128, False, id="8-2048-16-0.05"),
+    # more masked rows than k: ids -1 past the valid
+    pytest.param(3, 2048, 20, 0.995, 128, False, id="3-2048-20-0.995"),
+    # the kernel's larger k, its second K extent (d 256) and its narrow row
+    # copies (d 20); every real score negative
+    (8, 2048, 80, 0.05, 256, False),
+    (4, 2048, 128, 0.05, 20, True),
+    (3, 2048, 128, 0.995, 20, False),
+    (5, 2048, 80, 0.995, 256, True),
 ])
-def test_b2_plain_matches_pallas(rng, bq, n, k, tomb):
-    x = _rand(rng, (n, 128))
+def test_b2_plain_matches_pallas(rng, bq, n, k, tomb, d, negative):
+    x = _rand(rng, (n, d))
     x /= np.linalg.norm(x, axis=1, keepdims=True)
+    if negative:   # positive rows, negative queries
+        x = np.abs(x)
     q8, sc = _quantize(x)
     dead = rng.random(n) < tomb
     if tomb > 0.9:
         dead[:] = True
-        dead[:5] = False
+        dead[rng.choice(n, 5, replace=False)] = False
     sc = np.where(dead, 0.0, sc).astype(np.float32)
     rmask = np.where(dead, NEG, 0.0).astype(np.float32)
-    q = _rand(rng, (bq, 128))
+    q = _rand(rng, (bq, d))
+    if negative:
+        q = -np.abs(q)
     want_v, want_i = topk_ip_sq8_pallas(
         jnp.asarray(q), jnp.asarray(q8), jnp.asarray(sc), jnp.asarray(rmask),
         k=k, blk=1024, interpret=True)
@@ -96,7 +108,12 @@ def test_b2_plain_matches_pallas(rng, bq, n, k, tomb):
                                  torch.from_numpy(rmask), k)
     sim = (q.astype(np.float64) @ q8.T.astype(np.float64)) * sc + rmask
     _check_same(got_v, got_i, want_v, want_i, sim)
-    assert not dead[got_i.numpy()[got_i.numpy() >= 0]].any()
+    got_i = got_i.numpy()
+    assert not dead[got_i[got_i >= 0]].any()
+    n_valid = min(k, int((~dead).sum()))
+    assert (got_i[:, :n_valid] >= 0).all() and (got_i[:, n_valid:] == -1).all()
+    if negative:
+        assert (got_v.numpy()[:, :n_valid] < 0).all()
 
 
 def test_b2_plain_bf16_rounds_queries(rng):
@@ -268,18 +285,51 @@ def test_kernels_match_plain_on_gpu():
         pv, pi = T.topk_ip_plain(q, db, k)
         sim = (q.double() @ db.double().T).cpu().numpy()
         _check_same(v.cpu(), i.cpu(), pv.cpu(), pi.cpu(), sim)
-    x = _rand(rng, (8192, 128))
-    q8, sc = _quantize(x)
-    dead = rng.random(8192) < 0.05
-    sc = np.where(dead, 0.0, sc).astype(np.float32)
-    rmask = np.where(dead, NEG, 0.0).astype(np.float32)
-    args = [torch.from_numpy(a).to(dev) for a in (q8, sc, rmask)]
-    q = torch.from_numpy(_rand(rng, (256, 128))).to(dev)
-    v, i = T.topk_ip_sq8(q, *args, 20)
-    pv, pi = T.topk_ip_sq8_plain(q, *args, 20, compute_dtype=torch.bfloat16)
-    qb = q.to(torch.bfloat16).double().cpu().numpy()
-    sim = (qb @ q8.T.astype(np.float64)) * sc + rmask
-    _check_same(v.cpu(), i.cpu(), pv.cpu(), pi.cpu(), sim)
+    # B2, the sq8 scan on the tensor cores: 5 % tombstones at k 20 / 80 /
+    # 128, every real score negative, k > valid rows (5 of 2048), d 256
+    # and d 20, and rows 4,096 apart repeating each other (other chunks)
+    for bq, n, k, d, case in [(256, 8192, 20, 128, "tombstones"),
+                              (200, 8192, 80, 128, "tombstones"),
+                              (64, 8192, 128, 128, "tombstones"),
+                              (100, 8192, 80, 256, "negative"),
+                              (33, 8192, 128, 20, "tombstones"),
+                              (7, 2048, 48, 128, "few_valid"),
+                              (128, 8192, 80, 128, "twins")]:
+        x = _rand(rng, (n, d))
+        if case == "negative":
+            x = np.abs(x)
+        if case == "twins":
+            x[n // 2:] = x[:n // 2]
+        q8, sc = _quantize(x)
+        dead = rng.random(n) < (0.0 if case == "twins" else 0.05)
+        if case == "few_valid":
+            dead[:] = True
+            dead[rng.choice(n, 5, replace=False)] = False
+        sc = np.where(dead, 0.0, sc).astype(np.float32)
+        rmask = np.where(dead, NEG, 0.0).astype(np.float32)
+        args = [torch.from_numpy(a).to(dev) for a in (q8, sc, rmask)]
+        qn = _rand(rng, (bq, d))
+        if case == "negative":
+            qn = -np.abs(qn)
+        q = torch.from_numpy(qn).to(dev)
+        v, i = T.topk_ip_sq8(q, *args, k)
+        pv, pi = T.topk_ip_sq8_plain(q, *args, k,
+                                     compute_dtype=torch.bfloat16)
+        # bf16 products summed in f32 in the tensor cores' order: ids equal
+        # but at near-ties, where the f64 scores at the kernel's ids equal
+        # the plain scores within ATOL
+        qb = q.to(torch.bfloat16).double().cpu().numpy()
+        sim = (qb @ q8.T.astype(np.float64)) * sc + rmask
+        _check_same(v.cpu(), i.cpu(), pv.cpu(), pi.cpu(), sim)
+        got = i.cpu().numpy()
+        assert not dead[got[got >= 0]].any()
+        if case == "negative":
+            assert (v.cpu().numpy() < 0).all() and (got >= 0).all()
+        if case == "few_valid":
+            assert (got[:, :5] >= 0).all() and (got[:, 5:] == -1).all()
+        if case == "twins":   # the lower twin wins: with a row, its twin
+            for row in got:
+                assert np.isin(row[row >= n // 2] - n // 2, row).all()
     # d 256: the kernel's second K extent; d 20: 8-byte row copies
     for bq, k, case, d in [(128, 20, "interior", 128),
                            (1, 80, "unprobed_query", 128),
@@ -313,5 +363,5 @@ def test_kernels_match_plain_on_gpu():
             got = i.cpu().numpy()
             for row in got:
                 assert np.isin(row[row >= 8192] - 8192, row).all()
-    assert T.LAUNCHES == {"topk_ip": 3, "topk_ip_sq8": 1,
+    assert T.LAUNCHES == {"topk_ip": 3, "topk_ip_sq8": 7,
                           "topk_ip_masked": 8}
