@@ -11,11 +11,11 @@ sources in ``nafp_tpu_torch/csrc/``, then:
 2. kernels B1 (``topk_ip``), B2 (``topk_ip_sq8``), B3 (``topk_ip_masked``),
    B4a (``run_variant``: v3, v2 and int8) and B4b (``run_dotonly``) against
    their plain PyTorch versions at the main path's shapes and edge cases
-   (B2, B3 and B4a also with ties across their chunks, at k up to 128, and
-   with B4b at d 256 and d 20; B4a's int8 results equal the plain
+   (B1, B2, B3 and B4a also with ties across their chunks, at k up to 128,
+   and with B4b at d 256 and d 20; B4a's int8 results equal the plain
    version's exactly), timed with CUDA events beside their bound and a
    one-call PyTorch yardstick (matmul + topk, which the port never calls),
-   at k 20 and k 80 for B2 and B3; B4a and B4b also at B2's shape beside
+   at k 20 and k 80 for B1, B2 and B3; B4a and B4b also at B2's shape beside
    B2, with their yardsticks there, and v2 against B2 at k 80; each
    launch's shared memory, CTAs per SM, registers and grid;
 3. the serving path through the CLI at full model width (random weights
@@ -62,9 +62,10 @@ SQ8_ROWS = 620_544           # the same DB padded to the sq8 store's 2048
 K = 20                       # k_probe of the protocol
 N_QUERY, N_DUMMY, SONG_SEC = 100, 200, 30   # synthetic corpus: 23,600 segs
 N_TEST = 2000                # test ids of the protocol run
-# H100 SXM published peaks (dense): f32 on the CUDA cores, bf16 and int8
-# tensor cores, HBM3 bandwidth.
-PEAK_F32, PEAK_BF16, PEAK_INT8, PEAK_BYTES = 67e12, 989e12, 1979e12, 3.35e12
+# H100 SXM published peaks (dense): bf16 and int8 tensor cores, HBM3
+# bandwidth, and the TF32 tensor cores.
+PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+PEAK_TF32 = 495e12           # B1's 3xTF32 products
 SCORE_ATOL = 1e-4            # scores vs plain (tests/test_pallas_topk.py)
 # B4b's unscaled sums (|sum| up to ~300; the row scale ~1/127 makes them
 # scores): exact bf16 x int8 products summed in f32 in another order
@@ -95,9 +96,9 @@ CARD_CPU_AGREE_MIN = 0.995
 # to 128-row subtiles, the total to 1024 rows; nprobe 40; k 20, or 80 for
 # the ivfpq-rr shortlist
 NLIST, LIST_TILE, PQ_BLK, NPROBE = 256, 128, 1024, 40
-# B3 launches per protocol run: 2000 ids in blocks of 128 at lengths
+# B1 and B3 launches per protocol run: 2000 ids in blocks of 128 at lengths
 # 1 3 5 9 11 19, query blocks of at most 512 rows, one decode chunk
-B3_LAUNCHES_PER_RUN = 235
+B1_LAUNCHES_PER_RUN = B3_LAUNCHES_PER_RUN = 235
 # ivfpq-rr top-1 agreement with l2 may trail ivfpq's by at most this
 # (tests/test_index.py's IVF-PQ recall rule)
 RR_AGREE_SLACK = 0.02
@@ -189,10 +190,11 @@ def sq8_store(x, gen, dead_share):
             torch.where(dead, NEG, 0.0).to(torch.float32).contiguous())
 
 
-def sq8_residency(lib, bq, n, d, k, *flags):
-    """Shared memory per CTA, CTAs per SM, registers and grid of the sq8
-    scan instance that library ``lib``'s wrapper launches for (bq, n, d,
-    k) (B4a: flags int8_dot, drain)."""
+def scan_residency(lib, bq, n, d, k, *flags):
+    """Shared memory per CTA, CTAs per SM, registers and grid of the scan
+    instance that library ``lib``'s wrapper launches for (bq, n, d, k) in
+    one wave (B1 "topk_f32", B2 "topk_sq8", B4a "bench_variant" with flags
+    int8_dot, drain)."""
     import torch
     from nafp_tpu_torch import kernels
     from nafp_tpu_torch.search import topk as T
@@ -233,37 +235,70 @@ def phase_kernels(dev):
     db = unit_rows(N_DB_ROWS, 128, gen, dev)
     errs = []
 
-    def b1_check(tag, q, dbx, k):
+    def b1_check(tag, q, dbx, k, twin_offset=0):
         v, i = T.topk_ip(q, dbx, k)
         pv, pi = T.topk_ip_plain(q, dbx, k)
+        if twin_offset:
+            check_twins(tag, i, twin_offset)
         return check_topk(tag, v, i, pv, pi, lambda ids: torch.einsum(
             "bd,bkd->bk", q.double(), dbx.double()[ids]))
 
-    for bq in (128, 512):
-        errs.append(b1_check(f"B1 Bq={bq} N={N_DB_ROWS}",
-                             unit_rows(bq, 128, gen, dev), db, K))
+    # the main shape at k 20 / 80 / 128, and a ragged query block
+    for bq, k in ((128, K), (512, K), (512, 4 * K), (512, 128), (300, 4 * K)):
+        errs.append(b1_check(f"B1 Bq={bq} k={k} N={N_DB_ROWS}",
+                             unit_rows(bq, 128, gen, dev), db, k))
     errs.append(b1_check("B1 Bq=1", unit_rows(1, 128, gen, dev), db, K))
-    neg_q = -unit_rows(64, 128, gen, dev).abs()
-    errs.append(b1_check("B1 all-negative scores", neg_q,
-                         unit_rows(5000, 128, gen, dev).abs(), K))
+    # every score negative at the main shape: negative queries against the
+    # rows' absolute values
+    errs.append(b1_check(f"B1 all-negative Bq=512 k={4 * K} N={N_DB_ROWS}",
+                         -unit_rows(512, 128, gen, dev).abs(), db.abs(),
+                         4 * K))
     errs.append(b1_check("B1 k>N", unit_rows(9, 128, gen, dev),
                          unit_rows(30, 128, gen, dev), 50))
+    # ties across chunks: rows 32,768 apart repeat each other (other
+    # chunks), and equal scores meet the shared bound
+    half = unit_rows(32_768, 128, gen, dev)
+    twin = torch.cat([half, half])
+    for bq, k in ((128, 4 * K), (512, 41)):
+        errs.append(b1_check(f"B1 ties across chunks Bq={bq} k={k} N=65536",
+                             unit_rows(bq, 128, gen, dev), twin, k,
+                             twin_offset=len(half)))
+    del half, twin
+    # the other row widths: K extent 256, and d 20
+    for d, bq, k in ((OTHER_D[0], 200, 4 * K), (OTHER_D[1], 64, 128)):
+        errs.append(b1_check(f"B1 d={d} Bq={bq} k={k} N=65536",
+                             unit_rows(bq, d, gen, dev),
+                             unit_rows(65_536, d, gen, dev), k))
+        log_residency(f"B1 d {d} k {k}",
+                      scan_residency("topk_f32", bq, 65_536, d, k))
     q = unit_rows(512, 128, gen, dev)
     ms = time_ms(lambda: T.topk_ip(q, db, K), 20)
+    ms80 = time_ms(lambda: T.topk_ip(q, db, 4 * K), 20)
     plain_ms = time_ms(lambda: T.topk_ip_plain(q, db, K), 5)
-    lib_ms = time_ms(lambda: torch.topk(torch.matmul(q, db.T), K, dim=1), 10)
-    flops = 2.0 * 512 * N_DB_ROWS * 128
+    lib_ms, lib_ms_k80 = (time_ms(lambda: torch.topk(
+        torch.matmul(q, db.T), k, dim=1), 10) for k in (K, 4 * K))
+    # 3xTF32: three TF32 products for each f32 one
+    flops = 3 * 2.0 * 512 * N_DB_ROWS * 128
     nbytes = 4.0 * (N_DB_ROWS * 128 + 512 * 128) + 8.0 * 512 * K
-    bound = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+    bound = max(flops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
+    residency = {f"k{k}": scan_residency("topk_f32", 512, N_DB_ROWS, 128, k)
+                 for k in (K, 4 * K, 128)}
+    for k, r in residency.items():
+        log_residency(f"B1 {k}", r)
     rec["topk_ip"] = dict(
         name="topk_ip (B1)", route="cuda",
         source="nafp_tpu_torch/csrc/topk_f32.cu",
         replaces="nafp_tpu/search/pallas_topk.py:247 (topk_ip_pallas)",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by="operations" if flops / PEAK_F32 >= nbytes / PEAK_BYTES
-        else "bytes", library_ms=lib_ms, shape="Bq 512, N 619500, d 128, k 20")
-    log(f"  B1 @ Bq 512: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"matmul+topk {lib_ms:.3f} ms, bound {bound:.3f} ms")
+        max_abs_err=max(errs), ms=ms, ms_k80=ms80, plain_ms=plain_ms,
+        bound_ms=bound, bound_by="operations (3xTF32)"
+        if flops / PEAK_TF32 >= nbytes / PEAK_BYTES else "bytes",
+        library_ms=lib_ms, library_ms_k80=lib_ms_k80,
+        tf32_tflops=flops / ms / 1e9, residency=residency,
+        shape="Bq 512, N 619500, d 128, k 20")
+    log(f"  B1 @ Bq 512: kernel {ms:.3f} ms (k {K}), {ms80:.3f} ms (k "
+        f"{4 * K}), plain {plain_ms:.3f} ms, matmul+topk {lib_ms:.3f} ms "
+        f"({lib_ms_k80:.3f} ms at k {4 * K}), bound {bound:.3f} ms, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s of TF32")
     del db
 
     # --- B2 --------------------------------------------------------------
@@ -323,7 +358,7 @@ def phase_kernels(dev):
                              *sq8_store(unit_rows(65_536, d, gen, dev), gen,
                                         0.05), k))
         log_residency(f"B2 d {d} k {k}",
-                      sq8_residency("topk_sq8", bq, 65_536, d, k))
+                      scan_residency("topk_sq8", bq, 65_536, d, k))
     q = unit_rows(1024, 128, gen, dev)
     ms = time_ms(lambda: T.topk_ip_sq8(q, vecs8, scales, rmask, K), 20)
     plain_ms = time_ms(lambda: T.topk_ip_sq8_plain(
@@ -337,7 +372,7 @@ def phase_kernels(dev):
     nbytes = (SQ8_ROWS * 128 + 8.0 * SQ8_ROWS + 4.0 * 1024 * 128
               + 8.0 * 1024 * K)
     bound = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
-    residency = {f"k{k}": sq8_residency("topk_sq8", 1024, SQ8_ROWS, 128, k)
+    residency = {f"k{k}": scan_residency("topk_sq8", 1024, SQ8_ROWS, 128, k)
                  for k in (K, 4 * K, 128)}
     for k, r in residency.items():
         log_residency(f"B2 {k}", r)
@@ -466,7 +501,7 @@ def phase_kernel_b4(dev, gen, vecs8, v16, scales, rmask):
                 continue
             errs[name].append(check_b4a(f"B4a {name} d={d} Bq={bq} k={k} "
                                         "N=65536", name, q, *store, k))
-            log_residency(f"B4a {name} d {d} k {k}", sq8_residency(
+            log_residency(f"B4a {name} d {d} k {k}", scan_residency(
                 "bench_variant", bq, 65_536, d, k,
                 int(kw.get("int8_dot", False)), int(name == "v2")))
     q1 = unit_rows(1, 128, gen, dev)
@@ -527,7 +562,7 @@ def phase_kernel_b4(dev, gen, vecs8, v16, scales, rmask):
     for name, kw in B4A.items():
         flags = (int(kw.get("int8_dot", False)), int(name == "v2"))
         for k in (K, 4 * K):
-            res[f"b4a_{name}_k{k}"] = sq8_residency(
+            res[f"b4a_{name}_k{k}"] = scan_residency(
                 "bench_variant", 1024, SQ8_ROWS, 128, k, *flags)
     b2, b2_80 = min(ms["b2"], ms["b2_again"]), ms["b2_k80"]
     share = {"k20": (b2 - ms["dotonly"]) / b2,
@@ -896,11 +931,14 @@ def phase_main_path(dev):
     launches = {name: sum(r[name] for r in launches_by_run.values())
                 for name in T.LAUNCHES}
     log(f"  kernel launches on the main path: {launches}")
-    for itype in ("ivfpq", "ivfpq-rr"):
-        n = launches_by_run[itype]["topk_ip_masked"]
-        if n != B3_LAUNCHES_PER_RUN:
-            raise AssertionError(f"evaluate -i {itype} launched B3 {n} times,"
-                                 f" predicted {B3_LAUNCHES_PER_RUN}")
+    predicted = {"l2": ("topk_ip", B1_LAUNCHES_PER_RUN),
+                 "ivfpq": ("topk_ip_masked", B3_LAUNCHES_PER_RUN),
+                 "ivfpq-rr": ("topk_ip_masked", B3_LAUNCHES_PER_RUN)}
+    for itype, (kernel, want) in predicted.items():
+        n = launches_by_run[itype][kernel]
+        if n != want:
+            raise AssertionError(f"evaluate -i {itype} launched {kernel} {n} "
+                                 f"times, predicted {want}")
     n_sl = len(results["l2"]["summary"]["seq_lens"])
     top1 = {k: r["raw"][:, :n_sl] for k, r in results.items()}
     agree = {k: float((top1["l2"] == top1[k]).mean())
@@ -1149,7 +1187,7 @@ def phase_bench(dev, b4_main):
                                  compute_dtype=torch.bfloat16)
     v0_err = check_topk("B2 (the bench's v0) @ bench shape", v, i, pv, pi,
                         b4a_score_at(q, vecs8, scales, rmask, False))
-    v0_residency = sq8_residency("topk_sq8", bq, n, 128, K)
+    v0_residency = scan_residency("topk_sq8", bq, n, 128, K)
     log_residency("B2 @ bench shape", v0_residency)
     del v, i, pv, pi
     variants = {}
@@ -1186,7 +1224,7 @@ def phase_bench(dev, b4_main):
             bound_ms=bound, bound_by="operations"
             if flops / peak >= sq8_bytes / PEAK_BYTES else "bytes",
             max_abs_err=max(err, b4_main["max_abs_err"][name]),
-            residency=sq8_residency("bench_variant", bq, n, 128, K,
+            residency=scan_residency("bench_variant", bq, n, 128, K,
                                     int(int8_dot), int(name == "v2")))
         log_residency(tag, variants[name]["residency"])
         lib = lib_ms if isinstance(lib_ms, str) else f"{lib_ms:.3f} ms"

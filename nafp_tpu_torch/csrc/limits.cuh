@@ -1,6 +1,5 @@
 // The mask value, the row order and the limits that every kernel of csrc/
-// shares (topk_common.cuh's FMA scan, mma_tile.cuh, warp_select.cuh and
-// the scans built on them).
+// shares (mma_tile.cuh, warp_select.cuh and the scans built on them).
 #pragma once
 
 namespace nafp {

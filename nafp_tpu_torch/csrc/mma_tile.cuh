@@ -1,4 +1,5 @@
-// The tensor-core product tiles shared by kernels B3 (topk_masked.cu), B4b
+// The tensor-core product tiles shared by every kernel of csrc/: B1
+// (topk_f32.cu: f32 rows, 3xTF32 products, below), B3 (topk_masked.cu), B4b
 // (bench_dotonly.cu) and the sq8 scan of B2 and B4a (sq8_scan.cuh), and the
 // asynchronous copies that stage their DB tiles.
 //
@@ -257,6 +258,139 @@ __device__ __forceinline__ void tile_mma(
         mma_bf16(acc[mt][nt], a[mt][2 * s2], b[0], b[1]);
         mma_bf16(acc[mt][nt], a[mt][2 * s2 + 1], b[2], b[3]);
       }
+    }
+  }
+}
+
+// --- f32 products on the TF32 tensor cores (kernel B1) --------------------
+//
+// 3xTF32: an f32 x is split as hi = rna(x), lo = rna(x - hi), both TF32
+// values (11 significant bits; x - hi is exact in f32), and a . b is summed
+// as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi on mma.sync.m16n8k8 tf32 with f32
+// accumulators, the small terms first. A product of two TF32 values is
+// exact in f32; the dropped a_lo.b_lo and lo's own rounding leave about
+// 2^-22 of each |a_i b_i|, near f32's own error for the same sum. The
+// tensor cores round their f32 sums toward zero, so one accumulator over
+// d = 128 (48 mma) drifted below the f32 reference by up to 1.1e-4 at
+// scores near 50 (H100, standard-normal rows): each 16 columns start a
+// fresh partial sum, added to the running sum with a rounded f32 add.
+//
+// The queries' A fragments stay in registers as f32 values (64 registers
+// at K extent 128, 128 at 256; split, they would take twice that) and are
+// split once per tile and k step; B is split in registers after each
+// ldmatrix (a tile element is read by the 4 warps that share its n-tiles,
+// and a split tile in shared memory would double every read).
+
+// DB rows as f32 tiles of TILE_ROWS rows, LD = DM + 4 floats apart (528 or
+// 1040 bytes: the 8 row addresses of one ldmatrix fall in 8 different
+// 16-byte bank groups).
+template <int DM>
+struct Tf32Tile {
+  static_assert(DM == 128 || DM == MAX_D, "K extent: 128 or MAX_D");
+  static constexpr int KSTEPS = DM / 8;     // mma k8 steps per dot product
+  static constexpr int LD = DM + 4;         // floats per staged row
+  static constexpr int BYTES = TILE_ROWS * LD * 4;  // one staged f32 tile
+};
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (nearest, ties away from
+// zero), as f32 bits: half an ulp of the 13 dropped bits added to the
+// magnitude, then the bits cut. Two integer operations (finite x); B1 ran
+// 5 % slower with the cvt (H100; PERF.md, B1 redesign).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// hi, lo of each of the N f32 values (as bits) in x.
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float v = __uint_as_float(x[i]);
+    hi[i] = to_tf32(v);
+    lo[i] = to_tf32(v - __uint_as_float(hi[i]));
+  }
+}
+
+// c += a . b for one m16n8k8 tile: tf32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragments of one M-tile of queries as f32 bits, rows row0 +
+// (0..15) of q (bq, d) f32; zeros past bq and past d. Lane l holds rows g =
+// l / 4 and g + 8, columns l % 4 (+4) of each k8 step: a[s][0] = (g, 8s +
+// l%4), a[s][1] = (g + 8, ...), a[s][2] = (g, 8s + l%4 + 4), a[s][3] = (g
+// + 8, ...).
+template <int DM>
+__device__ __forceinline__ void load_a_f32(
+    uint32_t (&a)[Tf32Tile<DM>::KSTEPS][4], const float* __restrict__ q,
+    int bq, int d, int row0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < Tf32Tile<DM>::KSTEPS; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + g + 8 * (i & 1);
+      const int col = 8 * s + t + 4 * (i >> 1);
+      a[s][i] = __float_as_uint(
+          row < bq && col < d ? q[(size_t)row * d + col] : 0.f);
+    }
+}
+
+// acc[nt] = the 3xTF32 products of the warp's M-tile (f32 A fragments a)
+// with n-tile nt0 + nt of the staged f32 tile at shared address `tile`
+// (rows Tf32Tile<DM>::LD floats apart); acc's places as tile_mma's.
+template <int NT, int DM>
+__device__ __forceinline__ void tile_mma_3xtf32(
+    const uint32_t (&a)[Tf32Tile<DM>::KSTEPS][4], uint32_t tile, int nt0,
+    float (&acc)[NT][4]) {
+  constexpr int LD = Tf32Tile<DM>::LD;
+  const int lane = threadIdx.x & 31;
+  // ldmatrix.x4 .b16 over f32 rows: lane l addresses row l % 8 of matrix
+  // l / 8, floats 4 * (l / 8) .. + 3 of the 16 that two k8 steps cover, and
+  // receives float l % 4 of row l / 4 of each matrix: the B fragments b0, b1
+  // of step 2 s2 and of step 2 s2 + 1
+  const uint32_t lane_off = ((lane & 7) * LD + 4 * (lane >> 3)) * 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+  for (int s2 = 0; s2 < Tf32Tile<DM>::KSTEPS / 2; ++s2) {
+    // the same split in every tile: an empty asm keeps it in the tile
+    // loop, where hoisted out it would take twice A's registers
+    uint32_t x[2][4], ah[2][4], al[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[j][i] = a[2 * s2 + j][i];
+        asm volatile("" : "+r"(x[j][i]));
+      }
+      split_tf32(x[j], ah[j], al[j]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t b[4], bh[4], bl[4];
+      ldmatrix_x4(b, tile + (nt0 + nt) * 8 * LD * 4 + lane_off + 64 * s2);
+      split_tf32(b, bh, bl);
+      float p[4] = {0.f, 0.f, 0.f, 0.f};  // these 16 columns' partial sum
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        mma_tf32(p, al[j], bh[2 * j], bh[2 * j + 1]);
+        mma_tf32(p, ah[j], bl[2 * j], bl[2 * j + 1]);
+        mma_tf32(p, ah[j], bh[2 * j], bh[2 * j + 1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] += p[i];
     }
   }
 }

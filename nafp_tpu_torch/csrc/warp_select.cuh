@@ -1,8 +1,8 @@
-// The selection shared by kernel B3 (topk_masked.cu) and the sq8 scan of
-// kernels B2 and B4a (sq8_scan.cuh): the warp-cooperative merge of a
-// tile's candidates into a sorted k-list, the per-query admission bound
-// that the chunk CTAs of one launch share, and the kernel that merges the
-// chunks' lists.
+// The selection shared by kernels B1 (topk_f32.cu), B3 (topk_masked.cu) and
+// the sq8 scan of kernels B2 and B4a (sq8_scan.cuh): the warp-cooperative
+// merge of a tile's candidates into a sorted k-list, the per-query
+// admission bound that the chunk CTAs of one launch share, and the kernel
+// that merges the chunks' lists.
 //
 // The shared bound. A chunk's list starts empty, so a chunked grid admits
 // k (1 + ln(rows / k)) scores per chunk and query. Once a CTA's k-list

@@ -4,7 +4,7 @@ on one card.
 Builds the CUDA kernels of the checkout at ``--tree`` (its own
 ``nafp_tpu_torch`` package, imported from there), then times, with CUDA
 events on data made on the card from seed 0: B1 (Bq 512 x 619,500 f32, k
-20), B2 (Bq 1024 x 620,544 int8, k 20 and 80; Bq 512 x 8,388,608, the sq8
+20 and 80), B2 (Bq 1024 x 620,544 int8, k 20 and 80; Bq 512 x 8,388,608, the sq8
 bench's shape), B3 (the IVF-PQ protocol store of
 ``extras/sweep_b3_grid.py``, k 20 and 80) and B4b (both shapes, and B2's
 at d 256, its K-extent-256 instance). It prints
@@ -86,6 +86,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ms = {}
     db, q = unit(619_500), unit(512)
     ms["b1"] = time_ms(lambda: T.topk_ip(q, db, 20))
+    ms["b1_k80"] = time_ms(lambda: T.topk_ip(q, db, 80))
     del db
     x = unit(620_544)
     sc = x.abs().amax(dim=1) / 127

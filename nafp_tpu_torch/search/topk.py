@@ -4,7 +4,9 @@ and their plain PyTorch versions.
 Counterpart of ``nafp_tpu/search/pallas_topk.py``:
 
 - ``topk_ip`` (kernel B1, ``csrc/topk_f32.cu``) replaces ``topk_ip_pallas``:
-  exact f32 top-k of ``q · dbᵀ``;
+  exact f32 top-k of ``q · dbᵀ``, its products f32-accurate on the TF32
+  tensor cores (3xTF32), with B3's selection and shared bound and a grid of
+  one wave;
 - ``topk_ip_sq8`` (kernel B2, ``csrc/topk_sq8.cu``) replaces
   ``topk_ip_sq8_pallas``: exact top-k over an int8 store, dequantised on
   the fly as ``(bf16(q) · row) · scale[row] + rmask[row]``. It runs the
@@ -43,7 +45,6 @@ MAX_K = 128                 # csrc/limits.cuh MAX_K
 MAX_D = 256                 # csrc/limits.cuh MAX_D
 QB = 64                     # queries per scan CTA (every scan)
 RB = 64                     # DB rows per scan tile (every scan)
-CTAS_PER_SM = 4             # B1's scan CTAs to launch per SM (two waves)
 # B3's scan fits two CTAs per SM up to k 80 at d <= 128
 # (csrc/topk_masked.cu); one wave
 MASKED_CTAS_PER_SM = 2
@@ -207,10 +208,10 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _grid(bq: int, n: int, device: torch.device,
-          ctas_per_sm: int = CTAS_PER_SM) -> Tuple[int, int]:
-    """(chunk_rows, n_chunks) of a scan on ``device``: B1's at the
-    default ``ctas_per_sm``, B3's at ``MASKED_CTAS_PER_SM``, the sq8
-    scan's at the CTAs one SM holds (``launch_sq8``)."""
+          ctas_per_sm: int) -> Tuple[int, int]:
+    """(chunk_rows, n_chunks) of a scan on ``device`` at ``ctas_per_sm``
+    scan CTAs per SM: B3's ``MASKED_CTAS_PER_SM``; B1's and the sq8
+    scan's, the CTAs one SM holds (``_resident``)."""
     return _plan_chunks(bq, n, _sm_count(device), ctas_per_sm)
 
 
@@ -239,7 +240,7 @@ def _resident(device_index: int, lib: str, *args: int) -> int:
 
 _ARGTYPES = {
     "topk_f32": [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
-    + [ctypes.c_void_p] * 5,
+    + [ctypes.c_void_p] * 6,
     "topk_sq8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 6,
     "topk_masked": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -253,8 +254,7 @@ def _lib_fn(name: str):
 
 
 def _launch(fn, counts: Dict[str, int], counter: str, q: torch.Tensor,
-            tensors, n: int, k: int, extra=(), scratch=(),
-            ctas_per_sm: int = CTAS_PER_SM
+            tensors, n: int, k: int, ctas_per_sm: int, extra=(), scratch=()
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch a scan + merge C entry point ``fn``; ``extra`` are its int
     arguments after k, ``scratch`` its tensors after n_chunks, and the
@@ -297,15 +297,17 @@ def launch_sq8(fn, lib: str, counts: Dict[str, int], counter: str,
     ctas = ctas_per_sm or _resident(q.device.index or 0, lib, d, k, *flags)
     bound = torch.full((bq,), NEG, dtype=torch.float32, device=q.device)
     return _launch(fn, counts, counter, q, [vecs8, scales, rmask],
-                   vecs8.shape[0], k, extra=tuple(flags), scratch=[bound],
-                   ctas_per_sm=ctas)
+                   vecs8.shape[0], k, ctas, extra=tuple(flags),
+                   scratch=[bound])
 
 
 def topk_ip(q: torch.Tensor, db: torch.Tensor, k: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k inner product (kernel B1). q (Bq, d) f32, db (N, d) f32,
-    on one CUDA device (or both on the CPU: plain version). Returns
-    (scores f32, positions int32), each (Bq, k)."""
+    on one CUDA device (or both on the CPU: plain version). The grid is one
+    wave of the CTAs an SM holds (the occupancy query), and the chunk CTAs
+    share a per-query admission bound, a (Bq,) scratch filled with NEG.
+    Returns (scores f32, positions int32), each (Bq, k)."""
     _check_k(k)
     if _all_on_cpu(q, db):
         return topk_ip_plain(q, db, k)
@@ -317,8 +319,10 @@ def topk_ip(q: torch.Tensor, db: torch.Tensor, k: int
     if bq == 0:
         return (torch.empty((0, k), device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
-    return _launch(_lib_fn("topk_f32"), LAUNCHES, "topk_ip", q, [db], n,
-                   k)
+    ctas = _resident(q.device.index or 0, "topk_f32", d, k)
+    bound = torch.full((bq,), NEG, dtype=torch.float32, device=q.device)
+    return _launch(_lib_fn("topk_f32"), LAUNCHES, "topk_ip", q, [db], n, k,
+                   ctas, scratch=[bound])
 
 
 def topk_ip_sq8(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
@@ -377,6 +381,6 @@ def topk_ip_masked(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
     # the admission bound the chunk CTAs share, raised by the scan
     bound = torch.full((bq,), NEG, dtype=torch.float32, device=q.device)
     out_v, out_i = _launch(_lib_fn("topk_masked"), LAUNCHES, "topk_ip_masked",
-                           q, [db, ids, bias], n, k, extra=(list_tile,),
-                           scratch=[bound], ctas_per_sm=MASKED_CTAS_PER_SM)
+                           q, [db, ids, bias], n, k, MASKED_CTAS_PER_SM,
+                           extra=(list_tile,), scratch=[bound])
     return out_v, _map_ids(out_i, ids)

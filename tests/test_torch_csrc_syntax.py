@@ -29,6 +29,7 @@ CUDA_RUNTIME_H = r"""#pragma once
 #define __forceinline__ inline
 #define __shared__
 #define __launch_bounds__(...)
+#define __maxnreg__(...)
 #define __align__(n) __attribute__((aligned(n)))
 enum cudaError { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef cudaError cudaError_t;

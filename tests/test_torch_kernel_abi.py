@@ -61,7 +61,7 @@ def _ctypes_kind(t) -> str:
 
 
 def test_every_entry_point_is_known():
-    assert len(ENTRY_POINTS) == 9
+    assert len(ENTRY_POINTS) == 10
     for name in ENTRY_POINTS:
         assert name in WRAPPER_ARGTYPES or name.endswith("_occupancy"), name
     assert set(WRAPPER_ARGTYPES) <= set(ENTRY_POINTS)
@@ -105,16 +105,6 @@ def test_every_header_makes_a_library_stale(tmp_path, monkeypatch):
         t0 += 20
 
 
-def _old_grid(bq, n, sms):
-    """B1's chunk plan as its wrapper computed it before the plan rounded
-    the chunk count down (CTAS_PER_SM scan CTAs per SM, rounded up)."""
-    qblocks = -(-bq // T.QB)
-    tiles = max(1, -(-n // T.RB))
-    n_chunks = max(1, min(tiles, -(-T.CTAS_PER_SM * sms // qblocks)))
-    chunk_rows = -(-tiles // n_chunks) * T.RB
-    return chunk_rows, -(-max(n, 1) // chunk_rows)
-
-
 PLANS = [
     # bq, n, sms
     (512, 635_904, 132),     # B3 at the protocol's IVF-PQ store
@@ -126,18 +116,26 @@ PLANS = [
 
 
 @pytest.mark.parametrize("bq,n,sms", PLANS)
-@pytest.mark.parametrize("ctas", [T.CTAS_PER_SM, T.MASKED_CTAS_PER_SM])
+@pytest.mark.parametrize("ctas", [1, 2])
 def test_chunk_plan(bq, n, sms, ctas):
     """Chunks are whole 64-row tiles that cover N exactly once, and the
-    grid asks for at most ``ctas`` CTAs per SM (one chunk at least); B1's
-    plan is unchanged at these shapes."""
+    grid asks for at most ``ctas`` CTAs per SM (one chunk at least): the
+    resident counts of B1 (1) and of B3 and the sq8 scan (2)."""
     chunk_rows, n_chunks = T._plan_chunks(bq, n, sms, ctas)
     qblocks = -(-bq // T.QB)
     assert chunk_rows % T.RB == 0 and chunk_rows > 0
     assert (n_chunks - 1) * chunk_rows < max(n, 1) <= n_chunks * chunk_rows
     assert n_chunks * qblocks <= ctas * sms or n_chunks == 1
-    if ctas == T.CTAS_PER_SM:
-        assert (chunk_rows, n_chunks) == _old_grid(bq, n, sms)
+
+
+def test_b1_plan_at_the_protocol_shape():
+    """B1 at Bq 512 over the protocol's 619,500 rows on 132 SMs, one CTA
+    per SM (168 registers): 8 query blocks x 16 chunks of 605 tiles = 128
+    CTAs, one wave (the FMA scan asked for 4 per SM: 528 CTAs, two waves
+    of 264)."""
+    chunk_rows, n_chunks = T._plan_chunks(512, 619_500, 132, 1)
+    assert (chunk_rows, n_chunks) == (38_720, 16)
+    assert n_chunks * -(-512 // T.QB) <= 132
 
 
 def test_b3_plan_at_the_protocol_shape():

@@ -278,13 +278,37 @@ def test_kernels_match_plain_on_gpu():
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
     T.reset_launches()
-    for bq, n, k in [(128, 61_950, 20), (1, 5_000, 20), (7, 30, 50)]:
-        q = torch.from_numpy(_rand(rng, (bq, 128))).to(dev)
-        db = torch.from_numpy(_rand(rng, (n, 128))).to(dev)
+    # B1 (3xTF32 on the tensor cores; standard-normal rows: scores up to
+    # ~50, where bf16x3 or one TF32 pass would miss ATOL): k 20 / 80 / 128
+    # at the main shape, a ragged query block, every score negative, k > N,
+    # rows 32,768 apart repeating each other (other chunks), d 256 and d 20
+    for bq, n, k, d, case in [(128, 61_950, 20, 128, ""),
+                              (1, 5_000, 20, 128, ""), (7, 30, 50, 128, ""),
+                              (512, 619_500, 80, 128, ""),
+                              (512, 619_500, 128, 128, ""),
+                              (300, 61_950, 80, 128, ""),
+                              (512, 619_500, 80, 128, "negative"),
+                              (128, 65_536, 80, 128, "twins"),
+                              (200, 65_536, 80, 256, ""),
+                              (64, 65_536, 128, 20, "")]:
+        qn, dbn = _rand(rng, (bq, d)), _rand(rng, (n, d))
+        if case == "negative":
+            qn, dbn = -np.abs(qn), np.abs(dbn)
+        if case == "twins":
+            dbn[n // 2:] = dbn[:n // 2]
+        q, db = torch.from_numpy(qn).to(dev), torch.from_numpy(dbn).to(dev)
         v, i = T.topk_ip(q, db, k)
         pv, pi = T.topk_ip_plain(q, db, k)
         sim = (q.double() @ db.double().T).cpu().numpy()
         _check_same(v.cpu(), i.cpu(), pv.cpu(), pi.cpu(), sim)
+        got = i.cpu().numpy()
+        assert (np.diff(v.cpu().numpy()[:, :min(k, n)], axis=1) <= 0).all()
+        if case == "negative":
+            assert (v.cpu().numpy() < 0).all() and (got >= 0).all()
+        if case == "twins":   # the lower twin wins: with a row, its twin
+            for row in got:
+                assert np.isin(row[row >= n // 2] - n // 2, row).all()
+        del sim
     # B2, the sq8 scan on the tensor cores: 5 % tombstones at k 20 / 80 /
     # 128, every real score negative, k > valid rows (5 of 2048), d 256
     # and d 20, and rows 4,096 apart repeating each other (other chunks)
@@ -363,5 +387,5 @@ def test_kernels_match_plain_on_gpu():
             got = i.cpu().numpy()
             for row in got:
                 assert np.isin(row[row >= 8192] - 8192, row).all()
-    assert T.LAUNCHES == {"topk_ip": 3, "topk_ip_sq8": 7,
+    assert T.LAUNCHES == {"topk_ip": 10, "topk_ip_sq8": 7,
                           "topk_ip_masked": 8}
