@@ -37,7 +37,21 @@ sources in ``nafp_tpu_torch/csrc/``, then:
 5. the encoder on the card against the port on the CPU (f32), bf16
    against f32 on the card, ``evaluate -i l2`` on the card against the
    same protocol on the CPU (a reduced id set), and the persisted IVF-PQ
-   store searched on the card and on the CPU.
+   store searched on the card and on the CPU;
+6. the training path at full width on its own synthetic corpus (120
+   training songs): one train step (bsz 8, bg + IR + SpecAugment with
+   fixed draws) on the card against the CPU in f32 (loss and every
+   gradient leaf) and bf16 against f32 on the card; ``train -c default
+   --max_epoch 2`` through the CLI (losses finite and falling, both
+   checkpoints, mini-search top-1 logged, step time, segments/s, peak
+   memory) and a window of its steps under ``torch.profiler``; the resume
+   to epoch 3; ``generate`` + ``evaluate -i l2`` (B1) with the trained
+   checkpoint and the untrained init on two query sets of held-out songs
+   (the corpus's pairs and ``unseen_syn``): top-1 exact reported, and the
+   held-out song-level NT-Xent of generate's fingerprints, which must be
+   lower for the trained checkpoint;
+   ``640_lamb`` (bsz 640, LAMB) and ``MODEL.BN: batch_norm`` steps on
+   device-resident batches, timed with CUDA events.
 
 Every phase raises on failure; nothing is caught. The last lines are the
 ``{"kernels": [...]}`` record, the card's name and power limit as
@@ -105,6 +119,25 @@ RR_AGREE_SLACK = 0.02
 # row widths off the main path that B3 and B4b also take: 256 (their second
 # K extent) and 20 (a multiple of 4 only: narrower cp.async copies)
 OTHER_D = (256, 20)
+# Phase 6, the training path: its own synthetic corpus (120 train songs of
+# SONG_SEC s, 30 validation songs, 20 query/db pairs, 20 dummy songs)
+TRAIN_SONGS, TRAIN_QUERY, TRAIN_DUMMY = 120, 20, 20
+TRAIN_NAME = "smoke_train"
+# one f32 step, card (TF32 off) vs CPU: products and sums in other orders
+# through 16 convolutions, the norms and tau 0.05
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3        # per gradient leaf, in Frobenius norm
+# bf16 vs f32 loss of the same step on the card: bf16 convolution and
+# DivEnc operands (<= 0.42 % at narrower widths on the CPU's emulation)
+BF16_LOSS_RTOL = 2e-2
+PROFILE_STEPS = 20
+# DB rows of phase 6's evaluate: the generated dummy and db rows, then
+# random unit rows, past FlatIndex.PALLAS_MIN_ROWS so l2 takes B1
+TRAIN_DB_ROWS = 60_000
+# seeded batches (one random segment per held-out song) of the served
+# checkpoints' song-level NT-Xent
+SERVE_LOSS_BATCHES = 50
+LAMB_STEPS, BN_STEPS = 30, 5
 
 
 def log(*args):
@@ -1344,6 +1377,456 @@ def phase_card_vs_cpu(dev, main_path, ivfpq):
                 ivfpq_card_vs_cpu_top1=pq_agree)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the training path
+# ---------------------------------------------------------------------------
+def train_corpus_cfg(data, preset="default", **model):
+    """A preset pointed at the training corpus and phase 6's work dirs."""
+    from nafp_tpu_torch.configuration import load_config
+    cfg = load_config(preset)
+    cfg["DIR"].update(SOURCE_ROOT_DIR=f"{data}/music/",
+                      BG_ROOT_DIR=f"{data}/aug/bg/",
+                      IR_ROOT_DIR=f"{data}/aug/ir/",
+                      OUTPUT_ROOT_DIR=f"{WORK}/train_emb/",
+                      LOG_ROOT_DIR=f"{WORK}/train_logs/")
+    cfg["MODEL"].update(model)
+    return cfg
+
+
+def host_draws(cfg, n_rep, gen):
+    """One step's augmentation draws (bg mix, SpecAugment holes and gates)
+    from a CPU generator, so the card and the CPU compute on the same
+    values."""
+    import torch
+    from nafp_tpu_torch.ops.specaug import hole_ranges
+    from nafp_tpu_torch.ops.tdaug import draw_bg_mix
+    snr, amp = draw_bg_mix(gen, n_rep, tuple(cfg["TD_AUG"]["TR_SNR"]))
+    sa = cfg["SPEC_AUG"]
+    spec = [dict(ranges=hole_ranges(
+                     gen, kind, 1, int(sa["SPECAUG_N_HOLES"]) if kind ==
+                     "cutout" else 1, 256, 32),
+                 act=torch.rand((2 * n_rep, 1, 1, 1), generator=gen)
+                 < float(sa["SPECAUG_PROBS"]))
+            for kind in sa["SPECAUG_CHAIN"]]
+    return {"td": dict(snr=snr, amp=amp), "spec": spec}
+
+
+def to_device(tree, dev):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree
+
+
+def step_loss_grads(cfg, state, batch, draws, dev):
+    """Loss and gradients of one train step of the full-width model with
+    ``state``'s weights, on ``dev``."""
+    from nafp_tpu_torch.train import trainer as TR
+    mel, spec, model, _ = TR.build_fp(cfg)
+    model.load_state_dict(state)
+    model.to(dev).train()
+    loss, _ = TR._make_loss_fn(cfg, mel, spec, model, train=True)(
+        to_device(batch, dev), None, to_device(draws, dev))
+    loss.backward()
+    return loss.item(), {n: p.grad.float().cpu()
+                         for n, p in model.named_parameters()}
+
+
+def train_metrics(run_dir):
+    """{tag: {epoch: value}} of one training run's metrics.jsonl."""
+    out = {}
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        for line in f:
+            m = json.loads(line)
+            out.setdefault(m["tag"], {})[m["step"]] = m["value"]
+    return out
+
+
+def train_runs(name):
+    d = os.path.join(WORK, "train_logs", "fit", name)
+    return sorted(os.path.join(d, r) for r in os.listdir(d))
+
+
+def ckpt_meta(name, epoch):
+    with open(os.path.join(WORK, "train_logs", "checkpoint", name,
+                           str(epoch), "meta.json")) as f:
+        return json.load(f)
+
+
+def timed_steps(cfg, batch_np, dev, n_steps, warmup=3):
+    """``n_steps`` train steps of ``cfg`` on one device-resident batch,
+    timed with CUDA events after ``warmup`` steps: (step ms, peak device
+    bytes, losses, the model)."""
+    import torch
+    from nafp_tpu_torch.optim.schedules import build_optimizer
+    from nafp_tpu_torch.train import trainer as TR
+    mel, spec, model, _ = TR.build_fp(cfg)
+    model.to(dev)
+    opt, sched = build_optimizer(cfg, model, 1000)
+    step = TR.TrainStep(cfg, model, opt, sched,
+                        TR._make_loss_fn(cfg, mel, spec, model, train=True),
+                        dev)
+    batch = TR.BatchUploader(dev)(batch_np)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(batch)[0] for _ in range(warmup)]
+    ms = time_ms(lambda: losses.append(step(batch)[0]), n_steps, warmup=0)
+    return (ms, torch.cuda.max_memory_allocated(),
+            [float(x) for x in losses], model)
+
+
+def check_uploader(ds, dev, n=4):
+    """``n`` host batches through one BatchUploader back to back, with no
+    synchronisation between them, so its pinned buffer slots are refilled
+    while earlier copies may be in flight: every device tensor must equal
+    its host batch."""
+    import numpy as np
+    import torch
+    from nafp_tpu_torch.train import trainer as TR
+    host = [ds[i] for i in range(n)]
+    upload = TR.BatchUploader(dev)
+    got = [upload(b) for b in host]
+    torch.cuda.synchronize()
+    for i, (h, d) in enumerate(zip(host, got)):
+        for k, v in d.items():
+            if not np.array_equal(v.cpu().numpy(), h[k]):
+                raise AssertionError(f"uploaded batch {i} {k} differs from "
+                                     "its host batch")
+    log(f"  BatchUploader: {n} batches through {TR.UPLOAD_SLOTS} pinned "
+        f"slots, each equal to its host batch")
+
+
+def step_layers(cfg, ds, dev, iters=20):
+    """Where a bsz-120 step's time goes, layer by layer (CUDA events, one
+    device-resident batch; the loader by the host clock): ms each."""
+    import torch
+    from nafp_tpu_torch.losses.ntxent import ntxent_loss
+    from nafp_tpu_torch.ops.tdaug import augment_replicas
+    from nafp_tpu_torch.optim.schedules import build_optimizer
+    from nafp_tpu_torch.train import trainer as TR
+
+    t0 = time.perf_counter()
+    host = [ds[i] for i in range(5)]
+    loader_ms = (time.perf_counter() - t0) * 1e3 / 5
+    upload = TR.BatchUploader(dev)
+    upload_ms = time_ms(lambda: upload(host[0]), iters)
+    b = upload(host[0])
+    mel, spec, model, _ = TR.build_fp(cfg)
+    model.to(dev).train()
+    opt, _ = build_optimizer(cfg, model, 1000)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    snr = tuple(cfg["TD_AUG"]["TR_SNR"])
+
+    def aug():
+        return augment_replicas(b["replicas"], b["bg"], b["ir"], gen, snr)
+    xp = aug()
+    x = torch.cat([b["anchors"], xp])
+    feat = spec(mel(x), gen)
+    n = b["anchors"].shape[0]
+
+    def fwd_bwd():
+        emb = model(feat)
+        emb.sum().backward()
+
+    emb = model(feat).detach().requires_grad_()
+
+    def loss_fwd_bwd():
+        ntxent_loss(emb[:n], emb[n:])[0].backward()
+    fwd_bwd()
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: model(feat), iters)
+    return dict(loader_host_ms=loader_ms, upload_ms=upload_ms,
+                tdaug_ms=time_ms(aug, iters),
+                logmel_specaug_ms=time_ms(lambda: spec(mel(x), gen), iters),
+                encoder_fwd_ms=fwd_ms,
+                encoder_fwd_bwd_ms=time_ms(fwd_bwd, iters),
+                loss_fwd_bwd_ms=time_ms(loss_fwd_bwd, iters),
+                optimizer_ms=time_ms(opt.step, iters))
+
+
+def serve_checkpoint(cli, T, cfg_path, out_root, index, dev):
+    """generate + evaluate -i l2 (kernel B1) of checkpoint ``index`` over a
+    DB padded with random unit rows to TRAIN_DB_ROWS: top-1 exact % at 1,
+    2 and 3 s, and the held-out song-level NT-Xent of generate's
+    fingerprints: batches of one random segment per song, its db row the
+    anchor and its query row the positive (tau 0.05, SERVE_LOSS_BATCHES
+    seeded batches)."""
+    import numpy as np
+    import torch
+    from nafp_tpu_torch.data.audio_io import create_memmap, load_memmap
+    from nafp_tpu_torch.losses.ntxent import ntxent_loss
+    cli(["generate", TRAIN_NAME, str(index), "-c", cfg_path, "--yes"],
+        standalone_mode=False)
+    emb_dir = os.path.join(WORK, out_root, TRAIN_NAME, str(index))
+    dummy, _ = load_memmap(emb_dir, "dummy_db", display=False)
+    db = torch.from_numpy(np.array(load_memmap(emb_dir, "db",
+                                               display=False)[0]))
+    query = torch.from_numpy(np.array(load_memmap(emb_dir, "query",
+                                                  display=False)[0]))
+    n_db, seg = len(db), len(db) // TRAIN_QUERY
+    if len(query) != n_db or n_db != seg * TRAIN_QUERY:
+        raise AssertionError(f"query/db rows {len(query)}/{n_db}")
+    dummy_dir = os.path.join(WORK, f"{out_root}_dummy{index}")
+    arr = create_memmap(dummy_dir, "dummy_db", (TRAIN_DB_ROWS - n_db, 128))
+    arr[:len(dummy)] = dummy
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    arr[len(dummy):] = unit_rows(TRAIN_DB_ROWS - n_db - len(dummy), 128, gen,
+                                 dev).cpu().numpy()
+    arr.flush()
+    del arr
+    T.reset_launches()
+    cli(["evaluate", TRAIN_NAME, str(index), "-c", cfg_path, "-i", "l2", "-t",
+         "all", "--test_seq_len", "1 3 5", "--emb_dummy_dir", dummy_dir],
+        standalone_mode=False)
+    if T.LAUNCHES["topk_ip"] <= 0:
+        raise AssertionError("evaluate -i l2 did not launch B1")
+    raw = np.load(os.path.join(emb_dir, "raw_score.npy"))
+    rng = np.random.default_rng(SEED)
+    losses = []
+    for _ in range(SERVE_LOSS_BATCHES):
+        sel = torch.from_numpy(np.arange(TRAIN_QUERY) * seg
+                               + rng.integers(0, seg, TRAIN_QUERY))
+        losses.append(ntxent_loss(db[sel], query[sel])[0].item())
+    return dict(top1=[round(100.0 * float(raw[:, i].mean()), 3)
+                      for i in range(3)],
+                song_loss=float(np.mean(losses)))
+
+
+def phase_training(dev):
+    import copy
+
+    import numpy as np
+    import torch
+    import yaml
+    from nafp_tpu_torch.cli import main as cli
+    from nafp_tpu_torch.data.catalog import Dataset
+    from nafp_tpu_torch.data.loader import prefetch
+    from nafp_tpu_torch.models.convert import save_params_npz, torch_to_flax
+    from nafp_tpu_torch.optim.schedules import build_optimizer
+    from nafp_tpu_torch.search import topk as T
+    from nafp_tpu_torch.train import trainer as TR
+
+    out = {}
+    data = os.path.join(WORK, "train_data")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable,
+                    os.path.join(ROOT, "extras", "make_synth_dataset.py"),
+                    data, "--n_train", str(TRAIN_SONGS), "--n_query",
+                    str(TRAIN_QUERY), "--n_dummy", str(TRAIN_DUMMY), "--sec",
+                    str(SONG_SEC)],
+                   check=True, timeout=600, stdout=subprocess.DEVNULL)
+    log(f"  training corpus in {time.perf_counter() - t0:.1f} s")
+    cfg = train_corpus_cfg(data)
+    cfg_path = os.path.join(WORK, "train.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+
+    # one step at full width, card (f32, TF32 off) against the CPU (f32),
+    # then bf16 against f32 on the card; same weights, batch and draws
+    t0 = time.perf_counter()
+    cfg32 = train_corpus_cfg(data, MIXED_PRECISION=False)
+    cfg32["BSZ"].update(TR_BATCH_SZ=8, TR_N_ANCHOR=4)
+    batch = {k: torch.from_numpy(v) for k, v in
+             Dataset(cfg32).get_train_ds()[0].items() if k in TR.BATCH_KEYS}
+    if sorted(batch) != ["anchors", "bg", "ir", "replicas"]:
+        raise AssertionError(f"train batch keys {sorted(batch)}")
+    draws = host_draws(cfg32, 4, torch.Generator().manual_seed(SEED))
+    state = TR.build_fp(cfg32)[2].state_dict()
+    cpu_loss, cpu_g = step_loss_grads(cfg32, state, batch, draws,
+                                      torch.device("cpu"))
+    gpu_loss, gpu_g = step_loss_grads(cfg32, state, batch, draws, dev)
+    bf_cfg = copy.deepcopy(cfg32)
+    bf_cfg["MODEL"]["MIXED_PRECISION"] = True
+    bf_loss, _ = step_loss_grads(bf_cfg, state, batch, draws, dev)
+    loss_rel = abs(gpu_loss / cpu_loss - 1)
+    grad_rel = max(float((gpu_g[n] - cpu_g[n]).norm() / cpu_g[n].norm())
+                   for n in cpu_g)
+    bf_rel = abs(bf_loss / gpu_loss - 1)
+    log(f"  one step, card vs CPU (f32, bsz 8): loss {gpu_loss:.6f} vs "
+        f"{cpu_loss:.6f} ({loss_rel:.2e} relative, tolerance "
+        f"{STEP_LOSS_RTOL}); worst gradient leaf {grad_rel:.2e} relative in "
+        f"Frobenius norm over {len(cpu_g)} leaves (tolerance "
+        f"{STEP_GRAD_RTOL}); bf16 loss {bf_loss:.6f} ({bf_rel:.2e} relative "
+        f"to f32 on the card, tolerance {BF16_LOSS_RTOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not loss_rel <= STEP_LOSS_RTOL:
+        raise AssertionError(f"card vs CPU step loss differ by {loss_rel}")
+    if not grad_rel <= STEP_GRAD_RTOL:
+        raise AssertionError(f"card vs CPU gradients differ by {grad_rel}")
+    if not bf_rel <= BF16_LOSS_RTOL:
+        raise AssertionError(f"bf16 vs f32 step loss differ by {bf_rel}")
+    out["step_card_vs_cpu"] = dict(loss_rel=loss_rel, grad_rel=grad_rel,
+                                   bf16_loss_rel=bf_rel)
+
+    # training through the CLI: the default preset at full width, 2 epochs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cli(["train", TRAIN_NAME, "-c", cfg_path, "--max_epoch", "2"],
+        standalone_mode=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    (run,) = train_runs(TRAIN_NAME)
+    m = train_metrics(run)
+    losses = list(m["loss/train"].values()) + list(m["loss/val"].values())
+    top1 = m.get("mini_search/top1_g(f)_scope1", {})
+    steps = ckpt_meta(TRAIN_NAME, 1)["step"]
+    log(f"  cli train -c default --max_epoch 2: {train_s:.1f} s, {steps} "
+        f"steps per epoch; train loss {m['loss/train']}, val loss "
+        f"{m['loss/val']}; mini-search top-1 g(f) @1 seg {top1}; step "
+        f"{m['throughput/step_ms']} ms, {m['throughput/segments_per_sec']} "
+        f"segments/s (bsz 120, EMA of the epoch's host step time); peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {m}")
+    if not m["loss/train"][2] < m["loss/train"][1]:
+        raise AssertionError(f"train loss did not fall: {m['loss/train']}")
+    ck = os.path.join(WORK, "train_logs", "checkpoint", TRAIN_NAME)
+    for ep in (1, 2):
+        if not os.path.exists(os.path.join(ck, str(ep), "params.npz")):
+            raise AssertionError(f"checkpoint {ep}/params.npz missing")
+    if sorted(top1) != [1, 2]:
+        raise AssertionError(f"mini-search top-1 not logged: {top1}")
+
+    # where a step's time goes: a window of the real loop (host loader,
+    # pinned upload, step) under torch.profiler, on a fresh model
+    mel, spec, model, _ = TR.build_fp(cfg)
+    model.to(dev)
+    ds = Dataset(cfg).get_train_ds()
+    opt, sched = build_optimizer(cfg, model, len(ds))
+    step = TR.TrainStep(cfg, model, opt, sched, TR._make_loss_fn(
+        cfg, mel, spec, model, train=True, aug_keys=TR._aug_keys(ds)), dev)
+    upload = TR.BatchUploader(dev)
+    batches = prefetch(ds)
+    for _, b in zip(range(3), batches):
+        step(upload(b))
+    n_prof = min(PROFILE_STEPS, (len(ds) - 3) // 2)
+
+    def window():
+        for _, b in zip(range(n_prof), batches):
+            step(upload(b))
+    # the same window without the profiler: its wall time against the
+    # device busy time the profiled window measures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_call(window, f"{n_prof} train steps (bsz 120)")
+    busy_plain = prof["device_busy_ms"] / plain_wall_ms
+    log(f"  the same {n_prof} steps without the profiler: wall "
+        f"{plain_wall_ms:.1f} ms; device busy (the profiled window's) "
+        f"{busy_plain:.3f} of it")
+    check_uploader(ds, dev)
+    layers = step_layers(cfg, ds, dev)
+    log("  a bsz-120 step by layer (ms; CUDA events on one device batch, "
+        "the loader by the host clock): " + json.dumps(
+            {k: round(v, 3) for k, v in layers.items()}))
+    out["cli_train"] = dict(
+        seconds=train_s, steps_per_epoch=steps, peak_bytes=peak,
+        train_loss=m["loss/train"], val_loss=m["loss/val"],
+        step_ms=m["throughput/step_ms"],
+        segments_per_sec=m["throughput/segments_per_sec"],
+        mini_top1=top1, profile=prof, layers=layers,
+        profile_step_ms=prof["wall_ms"] / n_prof,
+        plain_step_ms=plain_wall_ms / n_prof, busy_unprofiled=busy_plain)
+
+    # resume: --max_epoch 3 restores epoch 2 and trains only epoch 3
+    t0 = time.perf_counter()
+    cli(["train", TRAIN_NAME, "-c", cfg_path, "--max_epoch", "3"],
+        standalone_mode=False)
+    runs = train_runs(TRAIN_NAME)
+    m3 = train_metrics(runs[-1])
+    epochs = sorted({ep for v in m3.values() for ep in v})
+    log(f"  resume --max_epoch 3: epochs logged {epochs}, step "
+        f"{ckpt_meta(TRAIN_NAME, 3)['step']}, train loss "
+        f"{m3['loss/train']}, {time.perf_counter() - t0:.1f} s")
+    if len(runs) != 2 or epochs != [3]:
+        raise AssertionError(f"resume trained epochs {epochs}")
+    if ckpt_meta(TRAIN_NAME, 3)["step"] != 3 * steps:
+        raise AssertionError("resume did not continue from epoch 2's step")
+    if not np.isfinite(list(m3["loss/train"].values())).all():
+        raise AssertionError(f"non-finite loss after resume: {m3}")
+
+    # the checkpoint feeds serving: generate + evaluate -i l2 (B1) with the
+    # trained weights (index 3) and the untrained init (index 0), on the
+    # corpus's 20 held-out db songs with two query sets: its own
+    # 'unseen_icassp' pairs (gain and faint white noise) and 'unseen_syn'
+    # (generate synthesizes the queries with the test-time background mix
+    # and IR). The gate is the held-out song-level NT-Xent of generate's
+    # fingerprints: the trained checkpoint must separate the songs better
+    # than the init. Top-1 exact is printed, not gated: a few epochs on
+    # this corpus do not lift it above the random init's, and at a reduced
+    # width on the CPU the JAX package's trainer does not lift it either
+    # (tests/train_top1_jax_vs_port.py; PERF.md, Findings).
+    save_params_npz(os.path.join(ck, "0", "params.npz"),
+                    torch_to_flax(TR.build_fp(cfg)[2].state_dict()))
+    serve = os.path.join(WORK, "serve_data", "music")
+    shutil.copytree(os.path.join(data, "music", "test-query-db-500-30s", "db"),
+                    os.path.join(serve, "val-query-db-500-30s", "db"))
+    shutil.copytree(os.path.join(data, "music", "test-dummy-db-100k-full"),
+                    os.path.join(serve, "test-dummy-db-100k-full"))
+    syn = copy.deepcopy(cfg)
+    syn["DIR"].update(SOURCE_ROOT_DIR=serve + "/",
+                      OUTPUT_ROOT_DIR=f"{WORK}/serve_emb/")
+    syn["DATA_SEL"]["TEST_QUERY_DB"] = "unseen_syn"
+    syn_path = os.path.join(WORK, "serve_syn.yaml")
+    with open(syn_path, "w") as f:
+        yaml.safe_dump(syn, f)
+    served = {}
+    for proto, path, root in (("unseen_icassp", cfg_path, "train_emb"),
+                              ("unseen_syn", syn_path, "serve_emb")):
+        for index in (0, 3):
+            r = serve_checkpoint(cli, T, path, root, index, dev)
+            served[f"{proto}@{index}"] = r
+            log(f"  {proto}, checkpoint {index} ({'trained, epoch 3' if index else 'untrained init'}): "
+                f"top-1 exact % at 1/2/3 s {r['top1']} over {TRAIN_DB_ROWS} "
+                f"DB rows (generate + evaluate -i l2); held-out song-level "
+                f"NT-Xent {r['song_loss']:.4f}")
+        if not (served[f"{proto}@3"]["song_loss"]
+                < served[f"{proto}@0"]["song_loss"]):
+            raise AssertionError(f"{proto}: the trained checkpoint does not "
+                                 f"separate held-out songs better than the "
+                                 f"init: {served}")
+    out["served"] = served
+
+    # the other presets: 640_lamb (bsz 640, LAMB) on a device-resident
+    # batch, timed with CUDA events; batch_norm for a few steps
+    cfg640 = train_corpus_cfg(data, "640_lamb")
+    b640 = Dataset(cfg640).get_train_ds()[0]
+    ms, peak640, l640, _ = timed_steps(cfg640, b640, dev, LAMB_STEPS)
+    log(f"  640_lamb: {ms:.2f} ms per step = {640 / ms * 1e3:.1f} "
+        f"segments/s over {LAMB_STEPS} steps on one device-resident batch "
+        f"(CUDA events), peak device memory {peak640 / 2**30:.2f} GiB, "
+        f"loss {l640[0]:.4f} -> {l640[-1]:.4f}")
+    if not np.isfinite(l640).all():
+        raise AssertionError(f"640_lamb loss not finite: {l640}")
+    cfg_bn = train_corpus_cfg(data, BN="batch_norm")
+    b120 = Dataset(cfg_bn).get_train_ds()[0]
+    ms_bn, _, l_bn, model_bn = timed_steps(cfg_bn, b120, dev, BN_STEPS,
+                                           warmup=1)
+    stats = {k: v.float().cpu() for k, v in model_bn.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    moved = sum(1 for k, v in stats.items() if not torch.equal(
+        v, torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v)))
+    finite = all(torch.isfinite(v).all() for v in stats.values())
+    log(f"  batch_norm: {1 + BN_STEPS} steps, {ms_bn:.2f} ms per step, loss "
+        f"{l_bn[0]:.4f} -> {l_bn[-1]:.4f}; running statistics changed in "
+        f"{moved} of {len(stats)} buffers, finite: {finite}")
+    if not (moved == len(stats) and finite and np.isfinite(l_bn).all()):
+        raise AssertionError("batch_norm running statistics did not move or "
+                             "are not finite")
+    out.update(lamb640=dict(step_ms=ms, segments_per_sec=640 / ms * 1e3,
+                            peak_bytes=peak640, loss=[l640[0], l640[-1]]),
+               batch_norm=dict(step_ms=ms_bn, loss=[l_bn[0], l_bn[-1]]))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1362,7 +1845,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = resolve_device()
     smi = nvidia_smi_line()
-    log(f"[1/5] device: {torch.cuda.get_device_name(0)} x "
+    log(f"[1/6] device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     build_s, logs = kernels.build_all()
@@ -1383,15 +1866,17 @@ def main() -> int:
         log(f"  ({name} took {phase_s[name]:.1f} s)")
         return out
 
-    log("[2/5] kernels against their plain versions")
+    log("[2/6] kernels against their plain versions")
     rec = timed("kernels", phase_kernels, dev)
-    log("[3/5] serving path through the CLI (full width)")
+    log("[3/6] serving path through the CLI (full width)")
     main_path = timed("main path", phase_main_path, dev)
     ivfpq = timed("IVF-PQ store", phase_ivfpq_store, dev, main_path)
-    log("[4/5] the sq8 kernel bench (B4a, B4b)")
+    log("[4/6] the sq8 kernel bench (B4a, B4b)")
     bench = timed("sq8 kernel bench", phase_bench, dev, rec["b4"])
-    log("[5/5] card against CPU")
+    log("[5/6] card against CPU")
     enc = timed("card vs CPU", phase_card_vs_cpu, dev, main_path, ivfpq)
+    log("[6/6] training path (full width)")
+    training = timed("training", phase_training, dev)
 
     kernels_line = []
     for name in ("topk_ip", "topk_ip_sq8", "topk_ip_masked"):
@@ -1431,7 +1916,8 @@ def main() -> int:
     summary = {k: v for k, v in main_path.items()
                if k not in ("cfg", "variables", "cfg_path", "dummy_dir",
                             "emb_dir")}
-    summary.update(enc, data_dependence=ivfpq["data_dependence"],
+    summary.update(enc, training=training,
+                   data_dependence=ivfpq["data_dependence"],
                    bench=bench["results"],
                    prune_ms=ivfpq["prune_ms"],
                    ivfpq_store_n_pad=ivfpq["n_pad"], phase_s=phase_s,

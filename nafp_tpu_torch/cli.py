@@ -1,9 +1,10 @@
-"""Command line of nafp_tpu_torch: generate -> evaluate (train: not ported).
+"""Command line of nafp_tpu_torch: train -> generate -> evaluate.
 
 Counterpart of ``nafp_tpu/cli.py`` with the same verbs and flags. Every
 command runs on ``cuda:0`` unless ``--nogpu`` asks for the CPU; without a
 card and without ``--nogpu`` it raises instead of moving to the CPU.
 
+    python -m nafp_tpu_torch.cli train NAME [-c CONFIG] [--max_epoch N]
     python -m nafp_tpu_torch.cli generate NAME [INDEX] [-c CONFIG] ...
     python -m nafp_tpu_torch.cli evaluate NAME INDEX [-i TYPE]  # ivfpq default
 """
@@ -11,26 +12,42 @@ from __future__ import annotations
 
 import click
 
-from nafp_tpu_torch.configuration import load_config, update_config
+from nafp_tpu_torch.configuration import (load_config, print_config,
+                                          update_config)
 
 
 @click.group()
 def main():
-    """Neural audio fingerprinting on the GPU: generate -> evaluate.
+    """Neural audio fingerprinting on the GPU: train -> generate -> evaluate.
 
     Run COMMAND --help for per-command usage.
     """
 
 
-@main.command(context_settings={"ignore_unknown_options": True,
-                                "allow_extra_args": True})
+@main.command()
 @click.argument("checkpoint_name", required=True)
-def train(checkpoint_name):
-    """Not ported yet (the training slice, ROADMAP.md)."""
-    del checkpoint_name
-    raise click.ClickException(
-        "train is not ported yet (the training slice, ROADMAP.md items "
-        "6-8); train with the JAX package and export its params (README)")
+@click.option("--config", "-c", default="default", type=click.STRING,
+              help="Config preset name; resolved to config/<NAME>.yaml.")
+@click.option("--max_epoch", default=None, type=click.INT,
+              help="Override TRAIN.MAX_EPOCH from the config.")
+@click.option("--nogpu", default=False, is_flag=True,
+              help="Train on the CPU instead of cuda:0.")
+def train(checkpoint_name, config, max_epoch, nogpu):
+    """Train a fingerprinter and checkpoint it under CHECKPOINT_NAME.
+
+    Writes LOG_ROOT_DIR/checkpoint/CHECKPOINT_NAME/EPOCH/params.npz (the
+    Flax layout, which generate reads) each epoch, and resumes from the
+    newest checkpoint there when one exists.
+    """
+    from nafp_tpu_torch.device import resolve_device
+    from nafp_tpu_torch.train.trainer import trainer
+
+    device = resolve_device(nogpu=nogpu)
+    cfg = load_config(config)
+    if max_epoch:
+        update_config(cfg, "TRAIN", "MAX_EPOCH", max_epoch)
+    print_config(cfg)
+    trainer(cfg, checkpoint_name, device=device)
 
 
 @main.command()

@@ -21,6 +21,7 @@ import numpy as np
 
 from nafp_tpu_torch.data.audio_io import wav_info
 from nafp_tpu_torch.data.loader import SegmentLoader
+from nafp_tpu_torch.parallel.mesh import process_shard
 
 SegEntry = Tuple[str, int, int, int]  # (filename, seg_idx, off_min, off_max)
 
@@ -125,15 +126,33 @@ class Dataset:
 
     # ------------------------------------------------------------------
     def get_train_ds(self, reduce_items_p: int = 0) -> SegmentLoader:
-        raise NotImplementedError(
-            "the training slice (ROADMAP.md items 6-8): the train loader "
-            "needs the process-shard helper of the multi-host mesh, not "
-            "ported yet")
+        if self.datasel_train != "10k_icassp":
+            raise NotImplementedError(self.datasel_train)
+        # one process: the whole list; under torch.distributed, this
+        # rank's round-robin share (parallel/mesh.py)
+        fps = process_shard(
+            _glob_wavs(self.source_root_dir, "train-10k-30s/**/*.wav"))
+        return SegmentLoader(
+            fns_event_list=fps, bsz=self.tr_batch_sz,
+            n_anchor=self.tr_n_anchor, duration=self.dur, hop=self.hop,
+            fs=self.fs, shuffle=True, random_offset_anchor=True,
+            bg_fps=self.tr_bg_fps, ir_fps=self.tr_ir_fps,
+            speech_fps=self.tr_speech_fps,
+            reduce_items_p=reduce_items_p,
+            song_cache_bytes=self.song_cache_bytes)
 
     def get_val_ds(self, max_song: int = 500) -> SegmentLoader:
-        raise NotImplementedError(
-            "the training slice (ROADMAP.md items 6-8): the validation "
-            "loader is not ported yet")
+        # sharded AFTER the max_song cut, so the global validation set is
+        # the one-process run's
+        fps = process_shard(_glob_wavs(
+            self.source_root_dir, "val-query-db-500-30s/**/*.wav")[:max_song])
+        return SegmentLoader(
+            fns_event_list=fps, bsz=self.val_batch_sz,
+            n_anchor=self.val_n_anchor, duration=self.dur, hop=self.hop,
+            fs=self.fs, shuffle=False, random_offset_anchor=False,
+            bg_fps=self.val_bg_fps, ir_fps=self.val_ir_fps,
+            speech_fps=self.val_speech_fps,
+            song_cache_bytes=self.song_cache_bytes)
 
     def get_test_dummy_db_ds(self) -> SegmentLoader:
         fps = _glob_wavs(self.source_root_dir,
@@ -156,10 +175,19 @@ class Dataset:
                             "test-query-db-500-30s/db/**/*.wav")
             return self._plain_db_loader(q), self._plain_db_loader(db)
         if self.datasel_test_query_db == "unseen_syn":
-            raise NotImplementedError(
-                "the training slice (ROADMAP.md item 7): 'unseen_syn' query "
-                "synthesis needs the time-domain augmentation "
-                "(ops/tdaug.augment_replicas), not ported yet")
+            fps = _glob_wavs(self.source_root_dir,
+                             "val-query-db-500-30s/db/**/*.wav")
+            # The query loader plans one replica per db segment (bsz
+            # doubled, anchors dropped from the output); generate augments
+            # them on the device (dataset.py:268-303).
+            ds_query = SegmentLoader(
+                fns_event_list=fps, bsz=self.ts_batch_sz * 2,
+                n_anchor=self.ts_batch_sz, duration=self.dur, hop=self.hop,
+                fs=self.fs, shuffle=False, random_offset_anchor=False,
+                bg_fps=self.ts_bg_fps, ir_fps=self.ts_ir_fps,
+                reduce_batch_first_half=True,
+                drop_the_last_non_full_batch=False)
+            return ds_query, self._plain_db_loader(fps)
         raise NotImplementedError(self.datasel_test_query_db)
 
     def get_custom_db_ds(self, source_root_dir: str) -> SegmentLoader:

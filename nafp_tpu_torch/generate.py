@@ -13,6 +13,13 @@ Batches are the loader's static ``TS_BATCH_SZ`` rows, the last one
 zero-padded with ``n_valid`` real rows: the log-mel max is taken over the
 whole batch, so the same batches reproduce the JAX package's memmaps.
 Exactly ``n_valid`` rows per batch are written.
+
+``DATA_SEL.TEST_QUERY_DB: unseen_syn`` synthesizes the queries: each
+batch's clean replicas are augmented on the device with the test-time
+background mix and IR (``TD_AUG.TS_*``), drawing from a generator seeded
+by the batch index (the JAX package keys batch i with ``PRNGKey(i)``:
+the same law, not the same draws). A source the loader has no files for
+is left out of the chain (the JAX package mixes zeros in its place).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from nafp_tpu_torch.models.convert import (find_params, flax_to_torch,
                                            load_params_npz)
 from nafp_tpu_torch.models.nnfp import get_fingerprinter
 from nafp_tpu_torch.ops.melspec import get_melspec_fn
+from nafp_tpu_torch.ops.tdaug import augment_replicas
 
 
 def load_params(cfg: Dict[str, Any], checkpoint_name: str,
@@ -86,7 +94,7 @@ def generate_fingerprint(cfg: Dict[str, Any],
     if cfg.get("DEVICE", {}).get("DEVICE_CORPUS"):
         raise NotImplementedError(
             "DEVICE.DEVICE_CORPUS (device-resident audio corpus) is not "
-            "ported yet (the training slice, ROADMAP.md item 8); set it to False")
+            "ported yet (ROADMAP.md Queue 1 item A); set it to False")
     melspec_fn, _ = get_melspec_fn(cfg)
     variables, checkpoint_index = load_params(cfg, checkpoint_name,
                                               checkpoint_index)
@@ -101,10 +109,20 @@ def generate_fingerprint(cfg: Dict[str, Any],
     if not skip_dummy and not source_root_dir and not assume_yes:
         prevent_overwrite("dummy_db", os.path.join(out_dir, "dummy_db.mm"))
 
+    snr = tuple(cfg["TD_AUG"]["TS_SNR"])
+    use_bg = bool(cfg["TD_AUG"]["TS_BG_AUG"])
+    use_ir = bool(cfg["TD_AUG"]["TS_IR_AUG"])
+
+    def to_dev(batch, key):
+        return (torch.from_numpy(batch[key]).to(device) if key in batch
+                else None)
+
     dim = int(cfg["MODEL"]["EMB_SZ"])
     sz_check = {}
     for key, loader in ds.items():
-        n_items = loader.n_samples
+        synth = loader.reduce_batch_first_half  # 'unseen_syn' query loader
+        n_rep = max(1, loader.n_pos_per_anchor) if synth else 1
+        n_items = loader.n_samples * n_rep
         assert n_items > 0
         arr = create_memmap(out_dir, key, (n_items, dim))
         print(f"=== Generating fingerprint from '{key}' "
@@ -112,10 +130,17 @@ def generate_fingerprint(cfg: Dict[str, Any],
         t0 = time.perf_counter()
         row = 0
         with torch.inference_mode():
-            for batch in prefetch(loader):
-                x = torch.from_numpy(batch["anchors"]).to(device)
+            for i, batch in enumerate(prefetch(loader)):
+                if synth:
+                    gen = torch.Generator(device=device).manual_seed(i)
+                    x = augment_replicas(to_dev(batch, "replicas"),
+                                         to_dev(batch, "bg"),
+                                         to_dev(batch, "ir"), gen, snr,
+                                         use_bg=use_bg, use_ir=use_ir)
+                else:
+                    x = to_dev(batch, "anchors")
                 emb = model(melspec_fn(x))
-                n_valid = int(batch["n_valid"])
+                n_valid = int(batch["n_valid"]) * n_rep
                 arr[row:row + n_valid] = emb[:n_valid].float().cpu().numpy()
                 row += n_valid
         arr.flush()

@@ -1,4 +1,4 @@
-"""Carry FingerPrinter weights from the Flax layout to the port's modules.
+"""Carry FingerPrinter weights between the Flax layout and the port's modules.
 
 A JAX checkpoint's variables are a nested dict ``{"params": ...,
 ["batch_stats": ...]}`` (what ``nafp_tpu.generate.load_params`` returns).
@@ -8,7 +8,9 @@ JAX or orbax: see README ("Exporting a JAX checkpoint").
 
 Layout changes: conv kernels HWIO -> OIHW; layer_norm2d gamma/beta
 (F,T,C) -> (C,F,T); everything else (biases, layer_norm1d/batch_norm
-vectors, DivEnc ``w1 b1 w2 b2``) as is.
+vectors, DivEnc ``w1 b1 w2 b2``) as is. :func:`torch_to_flax` is the
+inverse: the trainer writes its checkpoints' ``params.npz`` through it, so
+either package reads them.
 """
 from __future__ import annotations
 
@@ -69,6 +71,65 @@ def flax_to_torch(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for leaf, tleaf in _STAT_NAMES.items():
                 put(f"{pre}.{slot}.{tleaf}", mod[leaf])
     return out
+
+
+def _norm_kind(keys) -> str:
+    """The Flax norm-module kind of a port state_dict's norms."""
+    keys = list(keys)
+    if any(k.endswith(".gamma") for k in keys):
+        return "LayerNorm2d"
+    if any(k.endswith(".running_mean") for k in keys):
+        return "BatchNorm"
+    return "LayerNorm"
+
+
+# MODEL.BN -> Flax norm-module kind; port leaf -> Flax leaf
+NORM_KINDS = {"layer_norm2d": "LayerNorm2d", "layer_norm1d": "LayerNorm",
+              "batch_norm": "BatchNorm"}
+_TLEAF = {tleaf: leaf for names in _NORM_NAMES.values()
+          for leaf, tleaf in names.items()}
+_TSTAT = {tleaf: leaf for leaf, tleaf in _STAT_NAMES.items()}
+
+
+def flax_leaf(key: str, kind: str) -> Tuple[str, Tuple[str, ...], Tuple]:
+    """(collection, Flax path, axes that carry the port's layout to Flax's)
+    of one port state_dict key; ``kind`` is the Flax norm-module kind."""
+    parts = key.split(".")
+    if parts[0] == "div_enc":
+        return "params", ("div_enc", parts[1]), ()
+    layer = f"conv_layer_{int(parts[1])}"
+    mod, leaf = parts[2], parts[3]
+    if mod in ("conv_1x3", "conv_3x1"):
+        if leaf == "weight":
+            return "params", (layer, mod, "kernel"), (2, 3, 1, 0)
+        return "params", (layer, mod, "bias"), ()
+    fname = f"{kind}_{int(mod.split('_')[1]) - 1}"      # norm_2 -> *_1
+    if leaf in _TSTAT:
+        return "batch_stats", (layer, fname, _TSTAT[leaf]), ()
+    axes = (1, 2, 0) if kind == "LayerNorm2d" else ()  # (C,F,T) -> (F,T,C)
+    return "params", (layer, fname, _TLEAF[leaf]), axes
+
+
+def torch_to_flax(tensors: Mapping[str, torch.Tensor],
+                  norm: Optional[str] = None
+                  ) -> Dict[str, Dict[str, Any]]:
+    """The port's state_dict (or any tensors keyed like it, such as its
+    gradients) -> Flax variables of numpy f32 arrays, batch_stats
+    included: the inverse of :func:`flax_to_torch`. ``norm`` is
+    ``MODEL.BN``; inferred from the keys when None (a gradient dict has no
+    running statistics, so pass it there)."""
+    kind = NORM_KINDS[norm] if norm else _norm_kind(tensors)
+    variables: Dict[str, Dict[str, Any]] = {}
+    for key, t in tensors.items():
+        coll, path, axes = flax_leaf(key, kind)
+        arr = t.detach().float().cpu().numpy()
+        node = variables.setdefault(coll, {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        # a copy: a CPU tensor's .numpy() shares its memory
+        node[path[-1]] = np.array(np.transpose(arr, axes) if axes else arr,
+                                  order="C")
+    return variables
 
 
 def unflatten(flat: Mapping[str, np.ndarray], sep: str = "/") -> Dict:

@@ -11,8 +11,10 @@ Counterpart of ``nafp_tpu/models/nnfp.py`` (reference ``model/fp/nnfp.py``):
   ``padding='same'`` refuses stride > 1).
 - ``layer_norm2d`` normalises each sample over the whole (C,F,T) volume in
   f32 with eps 1e-3, with a scale and offset per position (C,F,T).
-  ``layer_norm1d`` normalises over channels; ``batch_norm`` applies running
-  statistics (inference only in this slice).
+  ``layer_norm1d`` normalises over channels; ``batch_norm`` normalises
+  by the batch's statistics in training (Flax semantics: biased variance
+  E[x²] − E[x]² in f32, running averages with momentum 0.99) and by the
+  running statistics in eval mode.
 - DivEnc: q slices of the flattened feature, each Dense(32, elu) ->
   Dense(1), as two batched einsums.
 - Flatten happens in NHWC order, as in the JAX package, so the DivEnc
@@ -22,11 +24,16 @@ Mixed precision (``MODEL.MIXED_PRECISION``, the default): convolutions and
 DivEnc take bf16 inputs (DivEnc accumulates in f32, as the TPU's
 bf16 x bf16 -> f32 products); normalisation statistics and the final
 L2-normalize run in f32; parameters are always f32.
+
+Initialisation draws from a ``torch.Generator`` seeded by the caller
+(never the global RNG): glorot-uniform convolution kernels and per-slice
+glorot DivEnc weights, zero biases, unit scales, as the Flax initialisers
+(the same law, not the same draws).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,6 +51,13 @@ DEFAULT_CHANNELS: Tuple[int, ...] = (128, 128, 256, 256, 512, 512, 1024, 1024)
 NORMS = ("layer_norm2d", "layer_norm1d", "batch_norm")
 
 
+def _glorot_(w: torch.Tensor, fan_in: int, fan_out: int,
+             gen: torch.Generator) -> None:
+    lim = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        w.uniform_(-lim, lim, generator=gen)
+
+
 def _same_pad(n: int, k: int, s: int) -> Tuple[int, int]:
     """TF/Flax 'SAME' padding of one dimension: total
     max((ceil(n/s)-1)*s + k - n, 0), the odd cell at the end."""
@@ -56,11 +70,14 @@ class SameConv2d(nn.Module):
     known size (the padding is fixed at construction)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: Tuple[int, int],
-                 stride: Tuple[int, int], in_hw: Tuple[int, int]):
+                 stride: Tuple[int, int], in_hw: Tuple[int, int],
+                 gen: Optional[torch.Generator] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch))
-        nn.init.xavier_uniform_(self.weight)
+        rf = kernel[0] * kernel[1]     # Flax glorot on HWIO: fans x H*W
+        _glorot_(self.weight, in_ch * rf, out_ch * rf,
+                 gen or torch.Generator().manual_seed(0))
         self.stride = stride
         (h, w), (kh, kw), (sh, sw) = in_hw, kernel, stride
         ph, pw = _same_pad(h, kh, sh), _same_pad(w, kw, sw)
@@ -124,27 +141,43 @@ class LayerNorm1d(nn.Module):
         return y.to(x.dtype)
 
 
-class BatchNormInference(nn.Module):
-    """ELU, then Flax ``nn.BatchNorm(use_running_average=True,
-    epsilon=1e-3)`` over channels in f32. Training-mode statistics come
-    with the training slice."""
+class BatchNorm(nn.Module):
+    """ELU, then Flax ``nn.BatchNorm(momentum=0.99, epsilon=1e-3,
+    dtype=float32)`` over channels.
 
-    def __init__(self, ch: int, eps: float = 1e-3):
+    Training mode: the batch's statistics over (B, F, T) in f32, with the
+    biased fast variance ``max(E[x²] − E[x]², 0)`` (Flax's default; unlike
+    ``nn.BatchNorm2d``, whose running variance is unbiased), and running
+    averages ``r = 0.99·r + 0.01·batch`` updated in place (buffers, not
+    parameters: no optimiser touches them). Eval mode: the running
+    statistics."""
+
+    def __init__(self, ch: int, eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
         self.eps = eps
+        self.momentum = momentum
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "the training slice: batch_norm training statistics are not ported")
         x = F.elu(x)
         xf = x.float()
-        mul = torch.rsqrt(self.running_var + self.eps) * self.scale
-        y = ((xf - self.running_mean[:, None, None]) * mul[:, None, None]
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp(xf.square().mean(dim=(0, 2, 3))
+                              - mean.square(), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean.detach())
+                self.running_var.copy_(m * self.running_var
+                                       + (1 - m) * var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = ((xf - mean[:, None, None]) * mul[:, None, None]
              + self.bias[:, None, None])
         return y.to(x.dtype)
 
@@ -155,7 +188,7 @@ def _norm(kind: str, shape: Tuple[int, int, int]) -> nn.Module:
     if kind == "layer_norm1d":
         return LayerNorm1d(shape[0])
     if kind == "batch_norm":
-        return BatchNormInference(shape[0])
+        return BatchNorm(shape[0])
     raise ValueError(f"MODEL.BN must be one of {NORMS}, got {kind!r}")
 
 
@@ -164,13 +197,14 @@ class ConvLayer(nn.Module):
 
     def __init__(self, in_ch: int, hidden_ch: int,
                  strides: Tuple[Tuple[int, int], Tuple[int, int]],
-                 in_hw: Tuple[int, int], norm: str = "layer_norm2d"):
+                 in_hw: Tuple[int, int], norm: str, gen: torch.Generator):
         super().__init__()
-        self.conv_1x3 = SameConv2d(in_ch, hidden_ch, (1, 3), strides[0], in_hw)
+        self.conv_1x3 = SameConv2d(in_ch, hidden_ch, (1, 3), strides[0], in_hw,
+                                   gen)
         hw1 = self.conv_1x3.out_hw
         self.norm_1 = _norm(norm, (hidden_ch, *hw1))
         self.conv_3x1 = SameConv2d(hidden_ch, hidden_ch, (3, 1), strides[1],
-                                   hw1)
+                                   hw1, gen)
         self.out_hw = self.conv_3x1.out_hw
         self.norm_2 = _norm(norm, (hidden_ch, *self.out_hw))
 
@@ -190,7 +224,7 @@ class DivEncLayer(nn.Module):
     """Divide-and-encode head as two batched einsums (reference
     ``nnfp.py:86-156``)."""
 
-    def __init__(self, d: int, q: int = 128,
+    def __init__(self, d: int, gen: torch.Generator, q: int = 128,
                  unit_dim: Tuple[int, int] = (32, 1)):
         super().__init__()
         if d % q:
@@ -203,8 +237,7 @@ class DivEncLayer(nn.Module):
         self.w2 = nn.Parameter(torch.empty(q, u0, u1))
         self.b2 = nn.Parameter(torch.zeros(q, u1))
         for w in (self.w1, self.w2):   # per-slice glorot
-            lim = math.sqrt(6.0 / (w.shape[1] + w.shape[2]))
-            nn.init.uniform_(w, -lim, lim)
+            _glorot_(w, w.shape[1], w.shape[2], gen)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         b, d = x.shape
@@ -227,26 +260,29 @@ class FingerPrinter(nn.Module):
 
     ``input_hw`` is the log-mel (F, T): layer_norm2d's per-position
     parameters depend on it, as in the JAX package, where the first call
-    fixes their shapes."""
+    fixes their shapes. ``seed`` seeds the generator the weights are
+    drawn from."""
 
     def __init__(self, input_hw: Tuple[int, int], emb_sz: int = 128,
                  front_hidden_ch: Sequence[int] = DEFAULT_CHANNELS,
                  front_strides: Sequence = DEFAULT_STRIDES,
                  fc_unit_dim: Tuple[int, int] = (32, 1),
                  norm: str = "layer_norm2d", use_l2layer: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
+        gen = torch.Generator().manual_seed(seed)
         ch = list(front_hidden_ch)
         if ch[-1] % emb_sz != 0:  # round up (nnfp.py:211-212)
             ch[-1] = (ch[-1] // emb_sz + 1) * emb_sz
         layers, in_ch, hw = [], 1, tuple(input_hw)
         for i in range(len(front_strides)):
-            layer = ConvLayer(in_ch, ch[i], front_strides[i], hw, norm)
+            layer = ConvLayer(in_ch, ch[i], front_strides[i], hw, norm, gen)
             layers.append(layer)
             in_ch, hw = ch[i], layer.out_hw
         self.conv_layers = nn.ModuleList(layers)
-        self.div_enc = DivEncLayer(in_ch * hw[0] * hw[1], q=emb_sz,
+        self.div_enc = DivEncLayer(in_ch * hw[0] * hw[1], gen, q=emb_sz,
                                    unit_dim=fc_unit_dim)
+        self.norm = norm
         self.use_l2layer = use_l2layer
         self.dtype = dtype
 
@@ -263,13 +299,22 @@ class FingerPrinter(nn.Module):
             g = l2_normalize(g)
         return g
 
+    def taps(self, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Mini-search validation taps: f, L2(f), L2(g(f)) in f32."""
+        f = self.front(x).float()
+        g = l2_normalize(self.div_enc(f, self.dtype).float())
+        return f, l2_normalize(f), g
 
-def get_fingerprinter(cfg: Dict[str, Any]) -> FingerPrinter:
+
+def get_fingerprinter(cfg: Dict[str, Any],
+                      seed: Optional[int] = None) -> FingerPrinter:
     """Build from a config dict (reference ``nnfp.py:234-258``).
 
     ``MODEL.FRONT_HIDDEN_CH`` overrides the channel plan (small ablations
     and test models). ``MODEL.ACT_STORE`` (int8/fp8 activation storage) is
-    not ported yet and raises."""
+    not ported yet and raises. ``seed`` seeds the initial weights (0 when
+    None: weights that a checkpoint then replaces)."""
     from nafp_tpu_torch.ops.melspec import MelSpecConfig
     m = cfg["MODEL"]
     if m.get("ACT_STORE"):
@@ -281,4 +326,5 @@ def get_fingerprinter(cfg: Dict[str, Any]) -> FingerPrinter:
                          emb_sz=int(m["EMB_SZ"]),
                          front_hidden_ch=tuple(m.get("FRONT_HIDDEN_CH",
                                                      DEFAULT_CHANNELS)),
-                         norm=m["BN"], dtype=dtype)
+                         norm=m["BN"], dtype=dtype,
+                         seed=0 if seed is None else int(seed))

@@ -128,25 +128,47 @@ def test_evaluate_raw_score_identical(slice_run, index_type):
 
 
 @pytest.mark.parametrize("verb", ["generate", "evaluate",
-                                  "evaluate-default"])
+                                  "evaluate-default", "train"])
 def test_cli_without_nogpu_needs_a_card(slice_run, verb):
     """Without --nogpu and without a card every command (evaluate with the
-    default -i ivfpq too) stops with "no CUDA device"."""
+    default -i ivfpq too, and train) stops with "no CUDA device"."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from nafp_tpu_torch.cli import main
     args = [verb.split("-")[0], NAME, str(INDEX), "-c", slice_run["cfg_path"]]
     if verb == "evaluate":
         args += ["-i", "l2"]
+    if verb == "train":
+        args.remove(str(INDEX))
     res = CliRunner().invoke(main, args)
     assert isinstance(res.exception, RuntimeError)
     assert "no CUDA device" in str(res.exception)
 
 
-def test_cli_train_not_ported():
+def test_cli_train_not_ported(slice_run, tmp_path):
+    """The "not ported yet" exit of the serving-only slices is gone:
+    ``train --nogpu`` trains a tiny config for one epoch and exits 0."""
     from nafp_tpu_torch.cli import main
-    res = CliRunner().invoke(main, ["train", "x", "-c", "default"])
-    assert res.exit_code != 0 and "training slice" in res.output
+    root = str(tmp_path)
+    for i in range(3):        # >= 19 validation segments: the longest scope
+        _write_wav(f"{root}/music/train-10k-30s/{i}.wav", _song(400 + i, 3.0))
+        _write_wav(f"{root}/music/val-query-db-500-30s/{i}.wav",
+                   _song(500 + i, 4.0))
+    with open(slice_run["cfg_path"]) as f:
+        cfg = yaml.safe_load(f)
+    cfg["DIR"].update(SOURCE_ROOT_DIR=f"{root}/music/",
+                      LOG_ROOT_DIR=f"{root}/logs/")
+    cfg["BSZ"].update(TR_BATCH_SZ=4, TR_N_ANCHOR=2, VAL_BATCH_SZ=4,
+                      VAL_N_ANCHOR=2)
+    cfg["TRAIN"].update(MAX_EPOCH=1, TENSORBOARD=False)
+    cfg["DEVICE"]["SONG_CACHE_GB"] = 0
+    cfg_path = os.path.join(root, "train.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    res = CliRunner().invoke(main, ["train", "x", "-c", cfg_path, "--nogpu"])
+    assert res.exit_code == 0, res.output + repr(res.exception)
+    assert "training slice" not in res.output
+    assert os.path.exists(f"{root}/logs/checkpoint/x/1/params.npz")
 
 
 def test_max_ir_length_matches_jax():
