@@ -23,7 +23,11 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    synthetic corpus -> ``generate`` -> a 619,500-row DB (the 10k-song
    protocol size) -> ``evaluate -i l2``, ``-i sq8``, ``-i ivfpq`` (the
    CLI default) and ``-i ivfpq-rr``; the kernels' launch counters are
-   zeroed just before each evaluate and read just after it. Then an
+   zeroed just before each evaluate and read just after it. Then
+   ``-i ivf-sq8 --nprobe 40`` (no hand-written kernel: no launch may be
+   counted), its top-1 agreement with ``-i l2`` and a profile, and its
+   top-k on 256 protocol queries against the exact top-k over the union of
+   each query's probed slices (plain torch ops in f32). Then an
    IVF-PQ store of the same DB, built and persisted on the card: small
    searches on the probe-pruned route timed against the linear scan, and
    B1/B3 timed on the protocol's own query fingerprints against random
@@ -38,7 +42,12 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    against f32 on the card, ``evaluate -i l2`` on the card against the
    same protocol on the CPU (a reduced id set), and the persisted IVF-PQ
    store searched on the card and on the CPU;
-6. the training path at full width on its own synthetic corpus (120
+6. the device-resident corpus (``DEVICE.DEVICE_CORPUS``): batches
+   gathered on the card through ``prefetch``'s thread against the host
+   loader's, bit for bit (a bsz-640 train loader with bg, IR and speech, a
+   db loader with a short last batch, the ``unseen_syn`` query loader),
+   and ``generate`` with it on against phase 3's memmaps;
+7. the training path at full width on its own synthetic corpus (120
    training songs): one train step (bsz 8, bg + IR + SpecAugment with
    fixed draws) on the card against the CPU in f32 (loss and every
    gradient leaf) and bf16 against f32 on the card; ``train -c default
@@ -51,7 +60,9 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    held-out song-level NT-Xent of generate's fingerprints, which must be
    lower for the trained checkpoint;
    ``640_lamb`` (bsz 640, LAMB) and ``MODEL.BN: batch_norm`` steps on
-   device-resident batches, timed with CUDA events.
+   device-resident batches, timed with CUDA events; ``640_lamb`` through
+   ``cli train`` for one epoch (22 steps) with the host loader and then
+   with ``DEVICE_CORPUS`` on, their step times side by side.
 
 Every phase raises on failure; nothing is caught. The last lines are the
 ``{"kernels": [...]}`` record, the card's name and power limit as
@@ -60,6 +71,7 @@ files go to ``smoke_run/`` beside this script (listed in .gitignore).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -119,7 +131,7 @@ RR_AGREE_SLACK = 0.02
 # row widths off the main path that B3 and B4b also take: 256 (their second
 # K extent) and 20 (a multiple of 4 only: narrower cp.async copies)
 OTHER_D = (256, 20)
-# Phase 6, the training path: its own synthetic corpus (120 train songs of
+# Phase 7, the training path: its own synthetic corpus (120 train songs of
 # SONG_SEC s, 30 validation songs, 20 query/db pairs, 20 dummy songs)
 TRAIN_SONGS, TRAIN_QUERY, TRAIN_DUMMY = 120, 20, 20
 TRAIN_NAME = "smoke_train"
@@ -131,13 +143,20 @@ STEP_GRAD_RTOL = 1e-3        # per gradient leaf, in Frobenius norm
 # DivEnc operands (<= 0.42 % at narrower widths on the CPU's emulation)
 BF16_LOSS_RTOL = 2e-2
 PROFILE_STEPS = 20
-# DB rows of phase 6's evaluate: the generated dummy and db rows, then
+# DB rows of phase 7's evaluate: the generated dummy and db rows, then
 # random unit rows, past FlatIndex.PALLAS_MIN_ROWS so l2 takes B1
 TRAIN_DB_ROWS = 60_000
 # seeded batches (one random segment per held-out song) of the served
 # checkpoints' song-level NT-Xent
 SERVE_LOSS_BATCHES = 50
 LAMB_STEPS, BN_STEPS = 30, 5
+# protocol queries whose IVF-SQ8 top-k is held against the exact top-k over
+# the union of their probed slices
+IVFSQ8_GATE_QUERIES = 256
+# generate with DEVICE_CORPUS on against off: the same waveforms, so the
+# same fingerprints up to the card's run-to-run variation
+DEVICE_CORPUS_ATOL = 2e-5
+
 
 
 def log(*args):
@@ -1001,7 +1020,104 @@ def phase_main_path(dev):
                            for k, r in results.items()},
                 rates={k: r["summary"]["rates"] for k, r in results.items()},
                 profile=profile, cfg=cfg, cfg_path=cfg_path,
-                dummy_dir=dummy_dir, emb_dir=emb_dir, variables=variables)
+                dummy_dir=dummy_dir, emb_dir=emb_dir, variables=variables,
+                l2_top1=top1["l2"], data=data)
+
+
+def ivfsq8_union_topk(idx, q, k, block=16):
+    """The exact top-k over the union of each query's probed slices of an
+    IVF-SQ8 store, by plain torch ops: the same coarse probe (f32, ties to
+    the lower list), every row of the nprobe slices once, bf16-rounded
+    queries times the int8 rows in f32, times the row scale."""
+    import torch
+    from nafp_tpu_torch.search.topk import topk_low_index
+    dev = idx.vecs8.device
+    out_v, out_i = [], []
+    for s in range(0, len(q), block):
+        qd = torch.from_numpy(q[s:s + block]).to(dev)
+        _, probes = topk_low_index(qd @ idx.centroids.T, idx.nprobe)
+        rows = (idx.starts[probes][:, :, None] + torch.arange(
+            idx.list_cap, device=dev)).view(len(qd), -1).sort(1).values
+        dup = torch.cat([torch.zeros_like(rows[:, :1], dtype=torch.bool),
+                         rows[:, 1:] == rows[:, :-1]], 1)
+        qb = qd.to(torch.bfloat16).to(torch.float32)
+        score = torch.einsum("qd,qnd->qn", qb,
+                             idx.vecs8[rows].to(torch.float32))
+        score = score * idx.scales[rows]
+        rid = idx.ids[rows]
+        score = score.masked_fill(dup | (rid < 0), float("-inf"))
+        v, sel = topk_low_index(score, k)
+        i = rid.gather(1, sel)
+        out_v.append(v)
+        out_i.append(torch.where(torch.isfinite(v), i, -1))
+    return torch.cat(out_v), torch.cat(out_i)
+
+
+def phase_ivf_sq8(dev, main_path):
+    """``evaluate -i ivf-sq8 --nprobe 40`` over the protocol DB (no
+    hand-written kernel: the JAX package scans IVF-SQ8 in XLA, the port in
+    torch ops): build time, ms/query, top-1 agreement with ``-i l2``, a
+    profile; then, on 256 protocol queries, the index's top-k against the
+    exact top-k over the union of each query's probed slices."""
+    import numpy as np
+    import torch
+    from nafp_tpu_torch.cli import main as cli
+    from nafp_tpu_torch.search import index as I
+    from nafp_tpu_torch.search import topk as T
+
+    store = os.path.join(WORK, "ivfsq8_store.npz")
+    args = ["evaluate", NAME, str(INDEX), "-c", main_path["cfg_path"], "-i",
+            "ivf-sq8", "--nprobe", str(NPROBE), "-t", str(N_TEST),
+            "--emb_dummy_dir", main_path["dummy_dir"], "--index_cache", store]
+    emb_dir = main_path["emb_dir"]
+    T.reset_launches()
+    t0 = time.perf_counter()
+    cli(args, standalone_mode=False)
+    wall = time.perf_counter() - t0
+    launches = dict(T.LAUNCHES)
+    with open(os.path.join(emb_dir, "eval_summary.json")) as f:
+        summary = json.load(f)
+    raw = np.load(os.path.join(emb_dir, "raw_score.npy"))
+    if (summary["index_type"] != "ivf-sq8" or summary["n_db"] != N_DB_ROWS
+            or summary["n_test"] != N_TEST or summary["nprobe"] != NPROBE):
+        raise AssertionError(f"evaluate -i ivf-sq8: {summary}")
+    if not os.path.exists(store):
+        raise AssertionError("ivf-sq8 --index_cache store was not written")
+    if any(launches.values()):
+        raise AssertionError(f"evaluate -i ivf-sq8 launched {launches}")
+    n_sl = len(summary["seq_lens"])
+    agree = float((main_path["l2_top1"] == raw[:, :n_sl]).mean())
+    log(f"  evaluate -i ivf-sq8 --nprobe {NPROBE}: {summary['ms_per_query']}"
+        f" ms/query, index build {summary['build_sec']} s, wall {wall:.1f} "
+        f"s, launches {launches}; top-1 exact agreement with l2 {agree:.4f}")
+    log(f"    hit rates (%) at lengths {summary['seq_lens']}: "
+        f"{json.dumps(summary['rates'])}")
+    prof = profile_call(lambda: cli(args, standalone_mode=False),
+                        "evaluate -i ivf-sq8 (store from --index_cache)")
+
+    idx = I.IVFSQ8Index.load(store, nprobe=NPROBE, device=dev)
+    _, query = protocol_db(main_path)
+    rng = np.random.default_rng(SEED + 6)
+    qs = np.ascontiguousarray(query[rng.choice(
+        len(query), min(IVFSQ8_GATE_QUERIES, len(query)), replace=False)])
+    v, i = (torch.from_numpy(a).to(dev) for a in idx.search(qs, K))
+    pv, pi = ivfsq8_union_topk(idx, qs, K)
+    pos = torch.empty(idx.ntotal, dtype=torch.long, device=dev)
+    pos[idx.ids[:idx.ntotal].long()] = torch.arange(idx.ntotal, device=dev)
+    qb = torch.from_numpy(qs).to(dev).to(torch.bfloat16).double()
+
+    def score_at(ids):
+        r = pos[ids]
+        return (qb[:, None, :] * idx.vecs8[r].double()).sum(-1) \
+            * idx.scales[r].double()
+    err = check_topk(f"ivf-sq8 vs the exact top-{K} over the probed "
+                     f"slices ({len(qs)} queries, nprobe {NPROBE}, list_cap "
+                     f"{idx.list_cap}, nlist {idx.nlist})", v, i.long(), pv,
+                     pi, score_at)
+    return dict(summary=summary, wall_s=wall, launches=launches,
+                top1_agreement_with_l2=agree, profile=prof,
+                union_max_abs_err=err, nlist=idx.nlist,
+                list_cap=idx.list_cap)
 
 
 def protocol_db(main_path):
@@ -1104,38 +1220,14 @@ def phase_ivfpq_store(dev, main_path):
 
 
 def profile_call(fn, tag: str, top: int = 6):
-    """Run fn under torch.profiler: wall time, the device's busy time (the
-    union of its kernel and copy intervals) and busy share, and the device
-    operations that take most time. Reads the raw trace events: turning
-    the ~1M host events of an IVF-PQ build into ``prof.events()`` takes
-    minutes."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Run fn under torch.profiler (``utils.profiling.device_profile``):
+    wall time, the device's busy time and busy share, and the device
+    operations that take most time."""
+    from nafp_tpu_torch.utils.profiling import device_profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_name = [], {}
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if e.device_type() != DeviceType.CUDA or name.startswith("Activity"):
-            continue
-        start, dur = e.start_ns(), e.duration_ns()
-        spans.append((start, start + dur))
-        ms, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + dur / 1e6, n + 1)
-    busy_ns, end = 0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy_ns += b - max(a, end)
-            end = b
-    busy_ms = busy_ns / 1e6
-    rows = sorted(by_name.items(), key=lambda r: -r[1][0])[:top]
+    p = device_profile(fn)
+    wall_ms, busy_ms = p["wall_ms"], p["device_busy_ms"]
+    rows = list(p["by_name"].items())[:top]
     log(f"  profile {tag}: wall {wall_ms:.1f} ms (profiler on), device "
         f"busy {busy_ms:.1f} ms = {busy_ms / wall_ms:.3f} of the wall")
     for name, (ms, n) in rows:
@@ -1144,6 +1236,120 @@ def profile_call(fn, tag: str, top: int = 6):
                 busy=busy_ms / wall_ms,
                 top=[dict(name=name[:90], ms=ms, count=n)
                      for name, (ms, n) in rows])
+
+
+# ---------------------------------------------------------------------------
+# The device-resident corpus (DEVICE.DEVICE_CORPUS)
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def counting_gathers():
+    """Count ``device_corpus.gather_segments`` calls (one per key and
+    batch of a loader on the device corpus) while the block runs; yields
+    a one-element list holding the count."""
+    from nafp_tpu_torch.data import device_corpus as DC
+    n, orig = [0], DC.gather_segments
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return orig(*a, **kw)
+    DC.gather_segments = counted
+    try:
+        yield n
+    finally:
+        DC.gather_segments = orig
+
+
+def phase_device_corpus(dev, main_path):
+    """Batches gathered on the card against the host loader's, bit for
+    bit: a bsz-640 train loader with bg, IR and speech, a db loader with a
+    short last batch and the ``unseen_syn`` query loader, on phase 3's
+    corpus; then ``generate`` with DEVICE_CORPUS on against phase 3's
+    memmaps (off)."""
+    import copy
+    import glob
+
+    import numpy as np
+    import torch
+    import yaml
+    from nafp_tpu_torch.cli import main as cli
+    from nafp_tpu_torch.data import device_corpus as DC
+    from nafp_tpu_torch.data.audio_io import load_memmap
+    from nafp_tpu_torch.data.loader import SegmentLoader, prefetch
+
+    data = main_path["data"]
+    songs = sorted(glob.glob(f"{data}/music/test-dummy-db-100k-full/*.wav"))
+
+    def aug(sub):
+        return sorted(glob.glob(f"{data}/aug/{sub}/*.wav"))
+    cases = {
+        "train, bsz 640, bg + IR + speech": dict(
+            fns_event_list=songs[:40], bsz=640, n_anchor=320, shuffle=True,
+            random_offset_anchor=True, bg_fps=aug("bg/tr"),
+            ir_fps=aug("ir/tr"), speech_fps=aug("speech/train")),
+        "db, short last batch": dict(
+            fns_event_list=songs[:7], bsz=125, n_anchor=125,
+            drop_the_last_non_full_batch=False),
+        "unseen_syn query": dict(
+            fns_event_list=songs[:10], bsz=250, n_anchor=125,
+            bg_fps=aug("bg/ts"), ir_fps=aug("ir/ts"),
+            reduce_batch_first_half=True,
+            drop_the_last_non_full_batch=False),
+    }
+    out = {}
+    for tag, kw in cases.items():
+        host = SegmentLoader(**kw)
+        gathered = DC.DeviceGatherLoader(SegmentLoader(**kw), device=dev)
+        host.set_epoch(2)
+        gathered.set_epoch(2)
+        n = 0
+        for i, b in enumerate(prefetch(gathered)):
+            h = host[i]
+            if set(h) != set(b) or int(h["n_valid"]) != int(b["n_valid"]):
+                raise AssertionError(f"{tag}, batch {i}: keys or n_valid")
+            for k, x in b.items():
+                if k == "n_valid":
+                    continue
+                if not (x.device == dev
+                        and np.array_equal(x.cpu().numpy(), h[k])):
+                    raise AssertionError(f"{tag}, batch {i}, {k}: the "
+                                         "gathered batch differs")
+            n += 1
+        last = int(host[len(host) - 1]["n_valid"])
+        out[tag] = dict(batches=n, last_n_valid=last)
+        log(f"  device corpus, {tag}: {n} batches gathered on the card "
+            f"(through prefetch's thread) equal the host loader's bit for "
+            f"bit; keys {sorted(h)}; last batch n_valid {last}")
+    if out["db, short last batch"]["last_n_valid"] >= 125:
+        raise AssertionError("the db case has no short last batch")
+
+    # generate with DEVICE_CORPUS on against phase 3's memmaps
+    cfg = copy.deepcopy(main_path["cfg"])
+    cfg["DEVICE"].update(DEVICE_CORPUS=True, DEVICE_CORPUS_MAX_GB=4)
+    cfg_path = os.path.join(WORK, "smoke_device_corpus.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    with counting_gathers() as gathers:
+        t0 = time.perf_counter()
+        cli(["generate", NAME, str(INDEX), "-c", cfg_path, "--yes", "-o",
+             os.path.join(WORK, "emb_device_corpus")], standalone_mode=False)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    worst = 0.0
+    for key in ("dummy_db", "db", "query"):
+        a, _ = load_memmap(os.path.join(WORK, "emb_device_corpus", NAME,
+                                        str(INDEX)), key, display=False)
+        b, _ = load_memmap(main_path["emb_dir"], key, display=False)
+        worst = max(worst, float(np.abs(np.asarray(a) - np.asarray(b)).max()))
+    log(f"  generate with DEVICE_CORPUS on: {gen_s:.2f} s "
+        f"({main_path['gen_segments'] / gen_s:.1f} segments/s; off: "
+        f"{main_path['gen_s']:.2f} s), {gathers[0]} gathers; memmaps within "
+        f"{worst:.2e} of DEVICE_CORPUS off (tolerance {DEVICE_CORPUS_ATOL})")
+    if not gathers[0]:
+        raise AssertionError("generate with DEVICE_CORPUS on never gathered")
+    if not worst <= DEVICE_CORPUS_ATOL:
+        raise AssertionError(f"DEVICE_CORPUS memmaps differ by {worst}")
+    return dict(loaders=out, generate_s=gen_s, generate_gathers=gathers[0],
+                generate_max_abs_diff=worst)
 
 
 # ---------------------------------------------------------------------------
@@ -1378,10 +1584,10 @@ def phase_card_vs_cpu(dev, main_path, ivfpq):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the training path
+# Phase 7: the training path
 # ---------------------------------------------------------------------------
 def train_corpus_cfg(data, preset="default", **model):
-    """A preset pointed at the training corpus and phase 6's work dirs."""
+    """A preset pointed at the training corpus and phase 7's work dirs."""
     from nafp_tpu_torch.configuration import load_config
     cfg = load_config(preset)
     cfg["DIR"].update(SOURCE_ROOT_DIR=f"{data}/music/",
@@ -1806,6 +2012,43 @@ def phase_training(dev):
         f"loss {l640[0]:.4f} -> {l640[-1]:.4f}")
     if not np.isfinite(l640).all():
         raise AssertionError(f"640_lamb loss not finite: {l640}")
+    # 640_lamb through the CLI for one epoch (22 steps), the host loader
+    # and then the device-resident corpus (DEVICE_CORPUS) in turns
+    lamb_cli = {}
+    for on in (False, True):
+        tag = "device corpus" if on else "host loader"
+        c = train_corpus_cfg(data, "640_lamb")
+        c["DEVICE"]["DEVICE_CORPUS"] = on
+        c["TRAIN"].update(MINI_TEST_IN_TRAIN=False, SAVE_IMG=False)
+        path = os.path.join(WORK, f"train640_{int(on)}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(c, f)
+        name = f"smoke640_{int(on)}"
+        with counting_gathers() as gathers:
+            t0 = time.perf_counter()
+            cli(["train", name, "-c", path, "--max_epoch", "1"],
+                standalone_mode=False)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        (run,) = train_runs(name)
+        m = train_metrics(run)
+        lamb_cli[tag] = dict(step_ms=m["throughput/step_ms"][1],
+                             segments_per_sec=m[
+                                 "throughput/segments_per_sec"][1],
+                             epoch_sec=m["time/epoch_sec"][1],
+                             train_loss=m["loss/train"][1],
+                             val_loss=m["loss/val"][1], gathers=gathers[0],
+                             cli_s=secs)
+        if not np.isfinite([m["loss/train"][1], m["loss/val"][1]]).all():
+            raise AssertionError(f"640_lamb, {tag}: loss not finite: {m}")
+        if bool(gathers[0]) != on:
+            raise AssertionError(f"640_lamb, {tag}: {gathers[0]} gathers")
+    log("  640_lamb, cli train 1 epoch (22 steps of bsz 640): " + "; ".join(
+        f"{tag} {r['step_ms']:.1f} ms/step, {r['segments_per_sec']:.0f} "
+        f"segments/s (the CLI's EMA), epoch {r['epoch_sec']:.1f} s with "
+        f"validation, train loss {r['train_loss']:.4f}, {r['gathers']} "
+        f"gathers" for tag, r in lamb_cli.items()))
+    out["lamb640_cli"] = lamb_cli
     cfg_bn = train_corpus_cfg(data, BN="batch_norm")
     b120 = Dataset(cfg_bn).get_train_ds()[0]
     ms_bn, _, l_bn, model_bn = timed_steps(cfg_bn, b120, dev, BN_STEPS,
@@ -1845,7 +2088,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = resolve_device()
     smi = nvidia_smi_line()
-    log(f"[1/6] device: {torch.cuda.get_device_name(0)} x "
+    log(f"[1/7] device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     build_s, logs = kernels.build_all()
@@ -1866,16 +2109,19 @@ def main() -> int:
         log(f"  ({name} took {phase_s[name]:.1f} s)")
         return out
 
-    log("[2/6] kernels against their plain versions")
+    log("[2/7] kernels against their plain versions")
     rec = timed("kernels", phase_kernels, dev)
-    log("[3/6] serving path through the CLI (full width)")
+    log("[3/7] serving path through the CLI (full width)")
     main_path = timed("main path", phase_main_path, dev)
+    ivf_sq8 = timed("IVF-SQ8", phase_ivf_sq8, dev, main_path)
     ivfpq = timed("IVF-PQ store", phase_ivfpq_store, dev, main_path)
-    log("[4/6] the sq8 kernel bench (B4a, B4b)")
+    log("[4/7] the sq8 kernel bench (B4a, B4b)")
     bench = timed("sq8 kernel bench", phase_bench, dev, rec["b4"])
-    log("[5/6] card against CPU")
+    log("[5/7] card against CPU")
     enc = timed("card vs CPU", phase_card_vs_cpu, dev, main_path, ivfpq)
-    log("[6/6] training path (full width)")
+    log("[6/7] the device-resident corpus")
+    corpus = timed("device corpus", phase_device_corpus, dev, main_path)
+    log("[7/7] training path (full width)")
     training = timed("training", phase_training, dev)
 
     kernels_line = []
@@ -1915,8 +2161,9 @@ def main() -> int:
         r["max_err"] = r["max_abs_err"]
     summary = {k: v for k, v in main_path.items()
                if k not in ("cfg", "variables", "cfg_path", "dummy_dir",
-                            "emb_dir")}
-    summary.update(enc, training=training,
+                            "emb_dir", "l2_top1", "data")}
+    summary.update(enc, training=training, ivf_sq8=ivf_sq8,
+                   device_corpus=corpus,
                    data_dependence=ivfpq["data_dependence"],
                    bench=bench["results"],
                    prune_ms=ivfpq["prune_ms"],

@@ -20,6 +20,10 @@ background mix and IR (``TD_AUG.TS_*``), drawing from a generator seeded
 by the batch index (the JAX package keys batch i with ``PRNGKey(i)``:
 the same law, not the same draws). A source the loader has no files for
 is left out of the chain (the JAX package mixes zeros in its place).
+
+``DEVICE.DEVICE_CORPUS``: every source whose songs fit
+``DEVICE_CORPUS_MAX_GB`` is uploaded once and its batches are gathered on
+the card (``data/device_corpus.py``); the memmaps are the same.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 
 from nafp_tpu_torch.data.audio_io import create_memmap
 from nafp_tpu_torch.data.catalog import Dataset
+from nafp_tpu_torch.data.device_corpus import maybe_device_loader
 from nafp_tpu_torch.data.loader import prefetch
 from nafp_tpu_torch.device import DeviceLike, resolve_device
 from nafp_tpu_torch.models.convert import (find_params, flax_to_torch,
@@ -91,10 +96,6 @@ def generate_fingerprint(cfg: Dict[str, Any],
     """Write the fingerprint memmaps; returns the output directory.
     ``device`` defaults to ``cuda:0`` (raises when no card is present)."""
     device = resolve_device(device)
-    if cfg.get("DEVICE", {}).get("DEVICE_CORPUS"):
-        raise NotImplementedError(
-            "DEVICE.DEVICE_CORPUS (device-resident audio corpus) is not "
-            "ported yet (ROADMAP.md Queue 1 item A); set it to False")
     melspec_fn, _ = get_melspec_fn(cfg)
     variables, checkpoint_index = load_params(cfg, checkpoint_name,
                                               checkpoint_index)
@@ -102,6 +103,10 @@ def generate_fingerprint(cfg: Dict[str, Any],
 
     dataset = Dataset(cfg)
     ds = get_data_source(cfg, dataset, source_root_dir, skip_dummy)
+    # DEVICE.DEVICE_CORPUS: each source that fits the budget is resident on
+    # the card and its batches are gathered there (data/device_corpus.py)
+    ds = {k: maybe_device_loader(v, cfg, label=k, device=device)
+          for k, v in ds.items()}
 
     out_root = output_root_dir or cfg["DIR"]["OUTPUT_ROOT_DIR"]
     out_dir = os.path.join(out_root, checkpoint_name, str(checkpoint_index))
@@ -114,8 +119,10 @@ def generate_fingerprint(cfg: Dict[str, Any],
     use_ir = bool(cfg["TD_AUG"]["TS_IR_AUG"])
 
     def to_dev(batch, key):
-        return (torch.from_numpy(batch[key]).to(device) if key in batch
-                else None)
+        if key not in batch:
+            return None
+        x = batch[key]
+        return x if torch.is_tensor(x) else torch.from_numpy(x).to(device)
 
     dim = int(cfg["MODEL"]["EMB_SZ"])
     sz_check = {}

@@ -1,12 +1,13 @@
-"""Vector indexes on the GPU: f32 flat, int8 flat, k-means and IVF-PQ.
+"""Vector indexes on the GPU: f32 flat, int8 flat, k-means, IVF-PQ and
+IVF-SQ8; hnsw on the host.
 
 Counterpart of ``nafp_tpu/search/index.py`` (``FlatIndex``,
-``SQ8FlatIndex``, ``kmeans``, ``IVFPQIndex``, ``get_index``,
-``cacheable_cls``), itself the replacement of the reference's FAISS
-backend (``eval/utils/get_index_faiss.py``). Fingerprints are
-L2-normalised, so L2 ranking equals inner-product ranking. IVF-SQ8, hnsw
-and the sharded indexes are later work and raise ``NotImplementedError``
-here.
+``SQ8FlatIndex``, ``kmeans``, ``IVFPQIndex``, ``IVFSQ8Index``,
+``get_index``, ``cacheable_cls``), itself the replacement of the
+reference's FAISS backend (``eval/utils/get_index_faiss.py``).
+Fingerprints are L2-normalised, so L2 ranking equals inner-product
+ranking. The sharded indexes are later work and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -21,8 +22,6 @@ from nafp_tpu_torch.search.topk import (NEG, topk_ip, topk_ip_masked,
 
 # Index types of the JAX package still to port (ROADMAP.md).
 _LATER = {
-    "ivf-sq8": "IVF-SQ8 (Queue 1, item 10)",
-    "hnsw": "hnsw (Queue 1, item 10)",
     "l2-sharded": "sharded search (Queue 1, item 11)",
     "sq8-sharded": "sharded search (Queue 1, item 11)",
     "ivf-sq8-sharded": "sharded search (Queue 1, item 11)",
@@ -33,7 +32,7 @@ def _not_ported(index_type: str) -> NotImplementedError:
     return NotImplementedError(
         f"index type {index_type!r} is not ported to nafp_tpu_torch yet: "
         f"{_LATER[index_type]} in ROADMAP.md, a later slice. Ported: l2, "
-        "ip, ivf, sq8, sq8-flat, ivfpq, ivfpq-rr")
+        "ip, ivf, sq8, sq8-flat, ivfpq, ivfpq-rr, ivf-sq8, hnsw")
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +307,17 @@ def _lloyd_step(data: torch.Tensor, cents: torch.Tensor,
 def _assign_block(data: torch.Tensor, cents: torch.Tensor) -> torch.Tensor:
     c_sq = (cents ** 2).sum(1)
     sim = 2.0 * (data @ cents.T) - c_sq[None, :]
+    return sim.argmax(1).to(torch.int32)
+
+
+def _assign_int8_block(q8: torch.Tensor, scales: torch.Tensor,
+                       cents: torch.Tensor) -> torch.Tensor:
+    """Nearest centroid of x = scale·q8: argmax_j 2·s·(q8·c_j) − |c_j|²,
+    in f32 (the JAX package's CPU arithmetic; on the TPU it rounds the
+    centroids to bf16 for the matrix unit)."""
+    c_sq = (cents ** 2).sum(1)
+    sim = 2.0 * scales[:, None] * (q8.to(torch.float32) @ cents.T) \
+        - c_sq[None, :]
     return sim.argmax(1).to(torch.int32)
 
 
@@ -711,17 +721,231 @@ def _pq_refine(q, raw, best_i, *, k):
 
 
 # ---------------------------------------------------------------------------
+# IVF-SQ8 (no hand-written kernel: the JAX package scans it in XLA)
+# ---------------------------------------------------------------------------
+class IVFSQ8Index:
+    """IVF with int8 rows (a scale per row) sorted by coarse list, so a
+    probed list is one contiguous slice of the store.
+
+    A slice reads ``list_cap`` rows from the list start: rows past the
+    list's end belong to the NEXT lists and are scored too (genuine rows
+    with genuine ids, so they can only add recall); a row scored twice is
+    counted once. The ``list_cap`` tail rows past the DB carry id −1 and
+    are masked. The ``.npz`` store is the JAX package's format.
+    """
+
+    # f32 bytes of gathered rows scored at once; a query block's probes are
+    # scored in groups under it (the result is the same)
+    SCORE_BYTES = 1 << 30
+
+    def __init__(self, d: int = 128, nlist: Optional[int] = None,
+                 nprobe: int = 40, device: DeviceLike = None):
+        self.d, self.nlist, self.nprobe = d, nlist, nprobe
+        self.device = resolve_device(device)
+        self.ntotal = 0
+        self._trained = False
+
+    def train(self, data: np.ndarray, max_train: Optional[int] = None,
+              kmeans_iters: int = 10, seed: int = 0) -> None:
+        if self.nlist is None:
+            # nlist ~ sqrt(N) (FAISS practice): a probe scans N / nlist rows
+            self.nlist = int(np.clip(
+                1 << int(np.log2(max(len(data), 2) ** 0.5) + 0.5),
+                256, 16384))
+        if max_train is None:
+            max_train = max(int(1e6), 256 * self.nlist)  # ~256 rows a list
+        # subsample before any full conversion (data may be a disk memmap)
+        if len(data) > max_train:
+            sel = np.sort(np.random.default_rng(seed)
+                          .permutation(len(data))[:max_train])
+            data = np.asarray(data[sel], np.float32)
+        else:
+            data = np.asarray(data, np.float32)
+        x = torch.from_numpy(np.ascontiguousarray(data)).to(self.device)
+        self.centroids = kmeans(x, self.nlist, iters=kmeans_iters, seed=seed)
+        self._trained = True
+
+    def add(self, data, block: int = 1 << 20,
+            persist_path: Optional[str] = None) -> None:
+        """Quantize and list-sort the DB into the device store.
+
+        ``data`` (an array or a disk memmap) is streamed block by block:
+        each block is quantized to int8 on the host FIRST, goes up once,
+        and is assigned to its list from its int8 form (the form the scan
+        scores). The permutation into list order runs on the device.
+        ``persist_path``: save the store as ``.npz`` (the JAX package's
+        keys) from the host arrays.
+        """
+        if not self._trained:
+            raise RuntimeError("train() before add()")
+        n, dev = len(data), self.device
+        q8_flat, scales_flat, _ = _quantize_sq8_host(data, 1, block)
+        buf = torch.empty((n, self.d), dtype=torch.int8, device=dev)
+        assign = np.empty(n, np.int32)
+        for s in range(0, n, block):
+            e = min(s + block, n)
+            blk = torch.from_numpy(q8_flat[s:e]).to(dev)
+            buf[s:e] = blk
+            assign[s:e] = _assign_int8_block(
+                blk, torch.from_numpy(scales_flat[s:e]).to(dev),
+                self.centroids).cpu().numpy()
+        counts = np.bincount(assign, minlength=self.nlist)
+        self.list_cap = int(max(1, counts.max()))
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+
+        # lists are contiguous with no padding between them, so the stable
+        # sort order IS the layout; the list_cap tail rows only let the
+        # last list's slice read list_cap rows (masked by id −1)
+        pad = self.list_cap
+        order = np.argsort(assign, kind="stable")
+        scales = np.zeros(n + pad, np.float32)
+        ids = np.full(n + pad, -1, np.int32)
+        scales[:n] = scales_flat[order]
+        ids[:n] = order.astype(np.int32)
+        self.ntotal = n
+        if persist_path:
+            q8s = np.zeros((n + pad, self.d), np.int8)
+            q8s[:n] = q8_flat[order]
+            np.savez(persist_path, nlist=self.nlist, list_cap=self.list_cap,
+                     ntotal=n, centroids=self.centroids.cpu().numpy(),
+                     vecs8=q8s, scales=scales,
+                     starts=starts.astype(np.int32), ids=ids)
+            del q8s
+        del q8_flat, scales_flat
+        self.vecs8 = _device_permute_rows(buf, order, n + pad)
+        del buf
+        self._publish_meta(scales, starts, ids)
+
+    def _publish_meta(self, scales, starts, ids) -> None:
+        dev = self.device
+        self.scales = torch.from_numpy(
+            np.ascontiguousarray(scales, np.float32)).to(dev)
+        self.starts = torch.from_numpy(
+            np.ascontiguousarray(starts, np.int64)).to(dev)
+        self.ids = torch.from_numpy(
+            np.ascontiguousarray(ids, np.int32)).to(dev)
+
+    @classmethod
+    def load(cls, path: str, nprobe: int = 40,
+             device: DeviceLike = None) -> "IVFSQ8Index":
+        """Load a store persisted by ``add(persist_path=...)`` (by either
+        package)."""
+        with np.load(path) as z:
+            cents = z["centroids"]
+            idx = cls(d=int(cents.shape[1]), nlist=int(z["nlist"]),
+                      nprobe=nprobe, device=device)
+            idx.list_cap = int(z["list_cap"])
+            idx.ntotal = int(z["ntotal"])
+            idx.centroids = torch.from_numpy(cents).to(idx.device)
+            idx.vecs8 = torch.from_numpy(
+                np.ascontiguousarray(z["vecs8"])).to(idx.device)
+            idx._publish_meta(z["scales"], z["starts"], z["ids"])
+        idx._trained = True
+        return idx
+
+    def search(self, q: np.ndarray, k: int,
+               block: int = 64) -> Tuple[np.ndarray, np.ndarray]:
+        q = np.asarray(q, np.float32)
+        outs_d, outs_i = [], []
+        for s in range(0, len(q), block):
+            blk = q[s:s + block]
+            # only a multi-block search pads its last block
+            pad = block - len(blk) if len(blk) < block and len(q) > block \
+                else 0
+            if pad:
+                blk = np.pad(blk, ((0, pad), (0, 0)))
+            d, ids = _ivfsq8_search_block(
+                torch.from_numpy(np.ascontiguousarray(blk)).to(self.device),
+                self.centroids, self.vecs8, self.scales, self.starts,
+                self.ids, k=k, nprobe=self.nprobe, cap=self.list_cap,
+                score_bytes=self.SCORE_BYTES)
+            n = len(blk) - pad
+            outs_d.append(d[:n].cpu().numpy())
+            outs_i.append(ids[:n].cpu().numpy())
+        if not outs_d:
+            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
+        return np.concatenate(outs_d), np.concatenate(outs_i)
+
+
+def _sq8_probe_scan(qb, probes, vecs8, scales, starts_arr, ids_arr, *,
+                    cap, keep, score_bytes):
+    """Score every probed slice, keep the top ``keep``, drop rows scored
+    twice. ``qb``: (nq, d) bf16 queries; ``probes``: (nq, nprobe) lists in
+    probe order. Each slice is ``cap`` rows from its list start, gathered
+    in one index; int8 rows times bf16 queries are exact in f32, summed in
+    f32, then × the row scale (the JAX package's bf16 product with f32
+    accumulation). The candidates are concatenated in probe order and
+    selected once with ties to the lower position, which is the JAX
+    package's running top-``keep`` merge over the same order. Returns
+    (nq, keep) scores and ids sorted by id, duplicates and empty slots at
+    −inf."""
+    nq, nprobe = probes.shape
+    d = vecs8.shape[1]
+    rows = (starts_arr[probes][:, :, None]
+            + torch.arange(cap, device=probes.device)).view(nq, -1)
+    qf = qb.to(torch.float32)[:, :, None]                  # (nq, d, 1)
+    per = max(1, score_bytes // (4 * nq * cap * d))        # probes a group
+    score = torch.cat([
+        torch.bmm(vecs8[rows[:, g * cap:(g + per) * cap]].to(torch.float32),
+                  qf)[:, :, 0]
+        for g in range(0, nprobe, per)], dim=1)            # (nq, nprobe·cap)
+    score = score * scales[rows]
+    rid = ids_arr[rows]
+    score = score.masked_fill(rid < 0, -float("inf"))
+    best_v, sel = topk_low_index(score, keep)
+    best_i = rid.gather(1, sel)
+    # de-duplicate: overlapping tail slices can score the same row twice
+    bi, order = torch.sort(best_i, dim=1, stable=True)
+    bv = best_v.gather(1, order)
+    dup = torch.cat([torch.zeros_like(bi[:, :1], dtype=torch.bool),
+                     bi[:, 1:] == bi[:, :-1]], dim=1)
+    return bv.masked_fill(dup | (bi < 0), -float("inf")), bi
+
+
+def _ivfsq8_search_block(q, centroids, vecs8, scales, starts_arr, ids_arr,
+                         *, k, nprobe, cap, score_bytes):
+    """One query block: f32 coarse probe (ties to the lower list), the
+    probed-slice scan, the final top-k (ties to the lower id); −1 where
+    fewer than k rows were scored."""
+    keep = min(2 * k, nprobe * cap)
+    if keep < k:
+        raise ValueError(f"k {k} exceeds the {nprobe * cap} rows that "
+                         f"nprobe {nprobe} slices of {cap} rows score")
+    _, probes = topk_low_index(q @ centroids.T, nprobe)    # (nq, nprobe)
+    bv, bi = _sq8_probe_scan(q.to(torch.bfloat16), probes, vecs8, scales,
+                             starts_arr, ids_arr, cap=cap, keep=keep,
+                             score_bytes=score_bytes)
+    d2, sel = topk_low_index(bv, k)
+    ids = bi.gather(1, sel)
+    return d2, torch.where(torch.isfinite(d2), ids, -1).to(torch.int32)
+
+
+def _device_permute_rows(src: torch.Tensor, order: np.ndarray,
+                         out_rows: int, chunk: int = 1 << 20) -> torch.Tensor:
+    """dst[:len(order)] = src[order] on src's device, in row chunks; only
+    ``order`` goes up. Rows past len(order) are zero."""
+    dst = torch.zeros((out_rows,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    for s in range(0, len(order), chunk):
+        idx = torch.from_numpy(order[s:s + chunk].astype(np.int64))
+        dst[s:s + len(idx)] = src[idx.to(src.device)]
+    return dst
+
+
+# ---------------------------------------------------------------------------
 def cacheable_cls(index_type: str, nprobe: int = 40):
     """(cls, load_kwargs) for index types whose built store persists to /
-    loads from an npz; (None, None) for the other ported types (IVF-PQ
-    included, as in the JAX package). Types still to port raise
-    NotImplementedError."""
+    loads from an npz (the int8 family); (None, None) for the other ported
+    types (IVF-PQ and hnsw included, as in the JAX package). Types still
+    to port raise NotImplementedError."""
     t = index_type.lower()
+    if t == "ivf-sq8":
+        return IVFSQ8Index, {"nprobe": nprobe}
     if t in ("sq8", "sq8-flat"):
         return SQ8FlatIndex, {}
     if t in _LATER:
         raise _not_ported(t)
-    if t in ("l2", "ip", "ivf", "ivfpq", "ivfpq-rr"):
+    if t in ("l2", "ip", "ivf", "ivfpq", "ivfpq-rr", "hnsw"):
         return None, None
     raise ValueError(index_type)
 
@@ -734,10 +958,12 @@ def get_index(index_type: str, train_data: np.ndarray,
     'l2'/'ip' exact f32; 'ivf' maps to the exact index (as in the JAX
     package); 'sq8'/'sq8-flat' the exact int8 scan; 'ivfpq' / 'ivfpq-rr'
     IVF-PQ with the reference's parameters (nlist 256, 8-bit codes), trained
-    here on ``train_data`` (at most ``max_train`` rows). Every other type of
-    the JAX package raises NotImplementedError naming its place in
-    ROADMAP.md. ``ef_search`` belongs to hnsw, not ported yet."""
-    del ef_search
+    here on ``train_data`` (at most ``max_train`` rows); 'ivf-sq8' int8
+    rows in coarse lists (nlist ~ sqrt(N), trained here); 'hnsw' the native
+    C++ graph on the host (M 16, efConstruction 200, ``ef_search`` the
+    query-time beam), like the reference's CPU-only
+    ``faiss.IndexHNSWFlat``. The sharded types raise NotImplementedError
+    naming their place in ROADMAP.md."""
     t = index_type.lower()
     d = train_data.shape[1]
     if t in ("l2", "ip", "ivf"):
@@ -753,6 +979,17 @@ def get_index(index_type: str, train_data: np.ndarray,
         return idx
     if t in ("sq8", "sq8-flat"):
         return SQ8FlatIndex(d=d, device=device)
+    if t == "ivf-sq8":
+        # the k-means budget scales with the automatic nlist (256 rows a
+        # list); an explicitly smaller cap is honoured
+        idx = IVFSQ8Index(d=d, nprobe=nprobe, device=device)
+        idx.train(train_data,
+                  max_train=None if max_train >= int(1e7) else max_train)
+        return idx
+    if t == "hnsw":
+        from nafp_tpu_torch.native.hnsw import HNSWIndex
+        return HNSWIndex(d=d, m=16, ef_construction=200,
+                         ef_search=ef_search)
     if t in _LATER:
         raise _not_ported(t)
     raise ValueError(index_type)

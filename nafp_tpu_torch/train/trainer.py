@@ -21,13 +21,17 @@ seeded by (TRAIN.SEED, step); validation step i of epoch ep by (TRAIN.SEED,
 These are the JAX package's keys: the same law, not the same draws. The
 initial weights come from seed 42, as the JAX package's ``init_params``.
 
+``DEVICE.DEVICE_CORPUS``: the training songs are resident on the card
+and each batch is gathered there (``data/device_corpus.py``); validation
+keeps the host loader, as in the JAX package.
+
 Not ported (each raises): ``LOSS_MODE: Online-Triplet`` (ROADMAP.md Queue 1
-item 12), ``DEVICE.DEVICE_CORPUS`` (item A), more than one process (item
-11).
+item 12), more than one process (item 11).
 """
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -35,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from nafp_tpu_torch.data.catalog import Dataset
+from nafp_tpu_torch.data.device_corpus import maybe_device_loader
 from nafp_tpu_torch.data.loader import SegmentLoader, prefetch
 from nafp_tpu_torch.device import DeviceLike, resolve_device
 from nafp_tpu_torch.losses.ntxent import ntxent_loss
@@ -60,10 +65,6 @@ def check_supported(cfg: Dict[str, Any]) -> None:
         raise NotImplementedError(
             f"LOSS.LOSS_MODE {cfg['LOSS']['LOSS_MODE']!r}: only NTxent is "
             "ported (the triplet branch is ROADMAP.md Queue 1 item 12)")
-    if cfg.get("DEVICE", {}).get("DEVICE_CORPUS"):
-        raise NotImplementedError(
-            "DEVICE.DEVICE_CORPUS (device-resident audio corpus) is not "
-            "ported yet (ROADMAP.md Queue 1 item A); set it to False")
     if dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
         raise NotImplementedError(
@@ -154,7 +155,8 @@ class BatchUploader:
     On the card each key has a pinned host buffer in each of UPLOAD_SLOTS
     slots, reused every step; a slot is refilled only after the event
     recorded behind its last copy has passed, so a copy in flight is never
-    overwritten."""
+    overwritten. A batch that is already on the device (the device corpus)
+    passes through untouched."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -167,6 +169,8 @@ class BatchUploader:
 
     def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         keys = [k for k in BATCH_KEYS if k in batch]
+        if all(torch.is_tensor(batch[k]) for k in keys):
+            return {k: batch[k] for k in keys}
         if not self.pinned:
             return {k: torch.from_numpy(np.asarray(batch[k], np.float32)).to(
                 self.device) for k in keys}
@@ -245,7 +249,9 @@ def trainer(cfg: Dict[str, Any], checkpoint_name: str,
     print(f"[trainer] on {device}: {sum(p.numel() for p in model.parameters())}"
           f" parameters, MODEL.BN {model.norm}, {model.dtype}")
 
-    train_ds = dataset.get_train_ds(cfg["DATA_SEL"]["REDUCE_ITEMS_P"])
+    train_ds = maybe_device_loader(
+        dataset.get_train_ds(cfg["DATA_SEL"]["REDUCE_ITEMS_P"]), cfg,
+        label="train corpus", device=device)
     steps_per_epoch = len(train_ds)
     ep_max = int(cfg["TRAIN"]["MAX_EPOCH"])
     optimizer, schedule = build_optimizer(cfg, model,
@@ -280,6 +286,7 @@ def trainer(cfg: Dict[str, Any], checkpoint_name: str,
 
     for ep in range(helper.epoch, ep_max + 1):
         print(f"EPOCH: {ep}/{ep_max}")
+        t_ep = time.perf_counter()
         train_ds.set_epoch(ep)
         losses, sim = [], None
         timer = StepTimer()
@@ -315,6 +322,7 @@ def trainer(cfg: Dict[str, Any], checkpoint_name: str,
         val_loss = (float(torch.stack(val_losses).mean()) if val_losses
                     else float("nan"))
         helper.log_scalar("loss/val", val_loss, ep)
+        helper.log_scalar("time/epoch_sec", time.perf_counter() - t_ep, ep)
         if save_img and val_losses:
             helper.log_sim_images("val_sim_mtx", sim.cpu().numpy(), ep)
         print(f"tr_loss:{tr_loss:.4f}, val_loss:{val_loss:.4f}")
