@@ -62,7 +62,21 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    ``640_lamb`` (bsz 640, LAMB) and ``MODEL.BN: batch_norm`` steps on
    device-resident batches, timed with CUDA events; ``640_lamb`` through
    ``cli train`` for one epoch (22 steps) with the host loader and then
-   with ``DEVICE_CORPUS`` on, their step times side by side.
+   with ``DEVICE_CORPUS`` on, their step times side by side;
+8. the measurement entry points at cut sizes, through their ``main``s,
+   the kernels' launch counters zeroed just before each and read just
+   after: ``nafp_tpu_torch/bench.py`` at full width (segments/s, ``mfu``),
+   ``bench_search --suite`` at 2,000,000 rows with hnsw at 20,000 (sq8
+   recall 1.0, ivfpq-rr within 0.02 of ivfpq), kernel B1's exact top-1
+   over that DB (``--gt device``) against the host's exact top-1,
+   ``extras/run_100x_protocol.py`` at 2,000,000 rows for sq8, ivf-sq8
+   and ivfpq against host ground truth (planted == exact for >= 99.9 % of
+   queries), ``extras/run_100x_sequence.py`` over 2,000 songs x 536
+   segments with sq8 (top-1 exact 100 % at every length),
+   ``extras/bench_train_step.py -c 640_lamb --steps 10`` (finite loss);
+   then B1 and B2 over more than 16,777,216 rows (past 2^31 elements of
+   the DB): the planted best row of each query, in the tail, is found,
+   and equals the plain version's top-1 over the tail alone.
 
 Every phase raises on failure; nothing is caught. The last lines are the
 ``{"kernels": [...]}`` record, the card's name and power limit as
@@ -156,6 +170,18 @@ IVFSQ8_GATE_QUERIES = 256
 # generate with DEVICE_CORPUS on against off: the same waveforms, so the
 # same fingerprints up to the card's run-to-run variation
 DEVICE_CORPUS_ATOL = 2e-5
+# Phase 8, the measurement entry points at cut sizes: the suite's and the
+# 100x protocol's DB (the JAX suite's own 2 M rows), hnsw's rows, the
+# sequence runner's dummy songs (x 536 segments)
+SUITE_N, SUITE_HNSW_N, SEQ_SONGS = 2_000_000, 20_000, 2_000
+# planted == exact top-1 share of the protocol's noisy-copy queries
+PLANTED_AGREE_MIN = 0.999
+# B1's exact top-1 may differ from the host sgemm's only where the host's
+# top-2 scores are this close
+GT_GAP_MIN = 1e-6
+# rows past 2^31 / 128: a DB whose byte (f32) and element (int8) offsets
+# pass 2^31; the best rows are planted past PLANT_FROM
+PLANT_ROWS, PLANT_FROM = 17_301_504, 1 << 24
 
 
 
@@ -2070,6 +2096,138 @@ def phase_training(dev):
     return out
 
 
+def phase_measurement(dev):
+    import numpy as np
+    import torch
+    from nafp_tpu_torch import bench, bench_search
+    from nafp_tpu_torch.extras import bench_train_step
+    from nafp_tpu_torch.extras import run_100x_protocol as P100
+    from nafp_tpu_torch.extras import run_100x_sequence
+    from nafp_tpu_torch.search import topk as T
+
+    out = {"launches": {}}
+
+    def counted(tag, fn, *args, need=()):
+        """fn(*args) with the launch counters zeroed just before and read
+        just after; each kernel of ``need`` must have launched."""
+        T.reset_launches()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        n = dict(T.LAUNCHES)
+        out["launches"][tag] = n
+        log(f"  {tag}: {time.perf_counter() - t0:.1f} s, launches {n}")
+        for kernel in need:
+            if n[kernel] <= 0:
+                raise AssertionError(f"{tag} never launched {kernel}")
+        return res
+
+    line = counted("bench", bench.main, ["--batch", "1024", "--iters", "20"])
+    if not (line["value"] > 0 and 0 < line.get("mfu", 0) <= 1):
+        raise AssertionError(f"bench.py: {line}")
+    out["bench"] = line
+
+    root = os.path.join(WORK, "bench2m")
+    suite = counted("bench_search --suite", bench_search.main,
+                    ["--suite", "--n", str(SUITE_N), "--hnsw_n",
+                     str(SUITE_HNSW_N), "--root", root, "--out",
+                     os.path.join(WORK, "SEARCH_BENCH_torch.json")],
+                    need=("topk_ip_sq8", "topk_ip_masked"))
+    rows = {r["index"]: r for r in suite["suite"] if r["index"] != "hnsw"}
+    recall = {k: r["recall_at_k"] for k, r in rows.items()}
+    if recall["sq8"] != 1.0:
+        raise AssertionError(f"suite: sq8 recall {recall['sq8']} != 1.0")
+    if not recall["ivfpq-rr"] >= recall["ivfpq"] - RR_AGREE_SLACK:
+        raise AssertionError(f"suite: ivfpq-rr trails ivfpq: {recall}")
+    out["suite"] = suite["suite"]
+
+    mm = P100.load_mm(root)
+    q, _ = P100.make_queries(mm, 2048)
+    host_i, host_v, host_v2 = P100.exact_gt_host(mm, q, root)   # cached
+    dev_i = counted("--gt device (B1)", P100.exact_gt_top1, mm, q,
+                    need=("topk_ip",))
+    clear = (host_v - host_v2) >= GT_GAP_MIN
+    if not bool((dev_i == host_i)[clear].all()):
+        raise AssertionError("B1's exact top-1 differs from the host's at "
+                             f"{int((dev_i != host_i)[clear].sum())} "
+                             "queries with a clear top-2 gap")
+    log(f"  B1's top-1 equals the host's at {int(clear.sum())} of {len(q)} "
+        f"queries ({int((dev_i == host_i).sum())} in all)")
+
+    out["protocol"] = {}
+    for index, kernel in (("sq8", "topk_ip_sq8"), ("ivf-sq8", None),
+                          ("ivfpq", "topk_ip_masked")):
+        res = counted(f"run_100x_protocol {index}", P100.main,
+                      ["--n", str(SUITE_N), "--root", root, "--index", index,
+                       "--gt", "host"], need=(kernel,) if kernel else ())
+        if not res["planted_agree"] >= PLANTED_AGREE_MIN:
+            raise AssertionError(f"100x {index}: planted == exact for only "
+                                 f"{res['planted_agree']}")
+        out["protocol"][index] = {k: res[k] for k in ("qps", "recall_at_k",
+                                                      "planted_agree")}
+
+    seq = counted("run_100x_sequence sq8", run_100x_sequence.main,
+                  ["--root", os.path.join(WORK, "seq100x"),
+                   "--n_dummy_songs", str(SEQ_SONGS), "--index", "sq8"],
+                  need=("topk_ip_sq8",))
+    if any(x != 100.0 for x in seq["rates"]["top1_exact"]):
+        raise AssertionError(f"100x sequence sq8: top-1 exact "
+                             f"{seq['rates']['top1_exact']}, not 100 %")
+    out["sequence"] = {k: seq[k] for k in ("n_db", "rates", "ms_per_query",
+                                           "build_sec")}
+
+    step = counted("bench_train_step 640_lamb", bench_train_step.main,
+                   ["-c", "640_lamb", "--steps", "10"])
+    if not step["loss_finite"]:
+        raise AssertionError(f"bench_train_step: {step}")
+    out["train_step"] = step
+    out["past_2g"] = check_past_2g(dev)
+    return out
+
+
+def check_past_2g(dev):
+    """B1 and B2 over PLANT_ROWS rows (past 2^31 elements: every row
+    offset is a 64-bit product in csrc/): each query's best row is a
+    planted row past PLANT_FROM; the kernel's top-1 must be it, and equal
+    the plain version's top-1 over the tail alone (positions compared
+    after the offset)."""
+    import torch
+    from nafp_tpu_torch.search import topk as T
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    bq = 64
+    plant = PLANT_FROM + torch.randint(PLANT_ROWS - PLANT_FROM, (bq,),
+                                       generator=gen, device=dev)
+    out = {}
+
+    def check(tag, v, i, pv, pi):
+        top = i[:, 0].long()
+        err = (v[:, 0] - pv[:, 0]).abs().max().item()
+        if not (torch.equal(top, plant) and torch.equal(
+                pi[:, 0].long() + PLANT_FROM, plant) and err <= SCORE_ATOL):
+            raise AssertionError(f"{tag}: planted rows found "
+                                 f"{int((top == plant).sum())}/{bq}, "
+                                 f"top-1 score error {err}")
+        log(f"  {tag} over {PLANT_ROWS} rows: the {bq} planted rows past row "
+            f"{PLANT_FROM} found, equal to the plain version over the tail "
+            f"(top-1 score error {err:.2e})")
+        out[tag] = err
+
+    db = unit_rows(PLANT_ROWS, 128, gen, dev)
+    q = db[plant] + 0.05 * torch.randn(bq, 128, generator=gen, device=dev)
+    q = (q / q.norm(dim=1, keepdim=True)).contiguous()
+    check("B1", *T.topk_ip(q, db, K),
+          *T.topk_ip_plain(q, db[PLANT_FROM:], K))
+    v8, sc = quantize(db)
+    del db
+    rm = torch.zeros(PLANT_ROWS, device=dev)
+    check("B2", *T.topk_ip_sq8(q, v8, sc, rm, K),
+          *T.topk_ip_sq8_plain(q, v8[PLANT_FROM:], sc[PLANT_FROM:],
+                               rm[PLANT_FROM:], K,
+                               compute_dtype=torch.bfloat16))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2088,7 +2246,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = resolve_device()
     smi = nvidia_smi_line()
-    log(f"[1/7] device: {torch.cuda.get_device_name(0)} x "
+    log(f"[1/8] device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     build_s, logs = kernels.build_all()
@@ -2109,20 +2267,22 @@ def main() -> int:
         log(f"  ({name} took {phase_s[name]:.1f} s)")
         return out
 
-    log("[2/7] kernels against their plain versions")
+    log("[2/8] kernels against their plain versions")
     rec = timed("kernels", phase_kernels, dev)
-    log("[3/7] serving path through the CLI (full width)")
+    log("[3/8] serving path through the CLI (full width)")
     main_path = timed("main path", phase_main_path, dev)
     ivf_sq8 = timed("IVF-SQ8", phase_ivf_sq8, dev, main_path)
     ivfpq = timed("IVF-PQ store", phase_ivfpq_store, dev, main_path)
-    log("[4/7] the sq8 kernel bench (B4a, B4b)")
+    log("[4/8] the sq8 kernel bench (B4a, B4b)")
     bench = timed("sq8 kernel bench", phase_bench, dev, rec["b4"])
-    log("[5/7] card against CPU")
+    log("[5/8] card against CPU")
     enc = timed("card vs CPU", phase_card_vs_cpu, dev, main_path, ivfpq)
-    log("[6/7] the device-resident corpus")
+    log("[6/8] the device-resident corpus")
     corpus = timed("device corpus", phase_device_corpus, dev, main_path)
-    log("[7/7] training path (full width)")
+    log("[7/8] training path (full width)")
     training = timed("training", phase_training, dev)
+    log("[8/8] the measurement entry points")
+    measurement = timed("measurement", phase_measurement, dev)
 
     kernels_line = []
     for name in ("topk_ip", "topk_ip_sq8", "topk_ip_masked"):
@@ -2130,6 +2290,9 @@ def main() -> int:
         r["launches"] = main_path["launches"][name]
         r["launches_by_run"] = {
             run: n[name] for run, n in main_path["launches_by_run"].items()
+            if n[name]}
+        r["launches_by_entry_point"] = {
+            tag: n[name] for tag, n in measurement["launches"].items()
             if n[name]}
         kernels_line.append(r)
     kernels_line[1].update(ms_k80=rec["b4"]["main_shape_ms"]["b2_k80"],
@@ -2163,6 +2326,7 @@ def main() -> int:
                if k not in ("cfg", "variables", "cfg_path", "dummy_dir",
                             "emb_dir", "l2_top1", "data")}
     summary.update(enc, training=training, ivf_sq8=ivf_sq8,
+                   measurement=measurement,
                    device_corpus=corpus,
                    data_dependence=ivfpq["data_dependence"],
                    bench=bench["results"],

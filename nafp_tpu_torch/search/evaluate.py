@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from nafp_tpu_torch.data.audio_io import load_memmap
-from nafp_tpu_torch.device import (DeviceLike, device_recon_budget,
-                                   resolve_device)
+from nafp_tpu_torch.device import (DeviceLike, chunked_device_put,
+                                   device_recon_budget, resolve_device)
 from nafp_tpu_torch.search.index import cacheable_cls, get_index
 from nafp_tpu_torch.search.table import LiveTable, print_results_table
 from nafp_tpu_torch.search.topk import topk_low_index
@@ -247,7 +247,7 @@ def eval_fingerprints(emb_dir: str,
     # raw vectors for rescoring: on the device when they fit half of the
     # free device memory left after the index was built, else host gathers
     limit = device_recon_budget(device)
-    recon_dev = (torch.from_numpy(np.ascontiguousarray(full_db)).to(device)
+    recon_dev = (chunked_device_put(full_db, device)
                  if full_db.nbytes <= limit else None)
     if recon_dev is None:
         print(f"recon array {full_db.nbytes / 2**30:.1f} GiB > "

@@ -16,7 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from nafp_tpu_torch.device import DeviceLike, resolve_device
+from nafp_tpu_torch.device import (DeviceLike, chunked_device_put,
+                                   resolve_device)
 from nafp_tpu_torch.search.topk import (NEG, topk_ip, topk_ip_masked,
                                         topk_ip_sq8, topk_low_index)
 
@@ -61,10 +62,15 @@ class FlatIndex:
             raise ValueError(f"metric must be 'l2' or 'ip', got {metric!r}")
         self.metric = metric
         self.device = resolve_device(device)
-        db_host = np.ascontiguousarray(db, np.float32)
-        self.db = torch.from_numpy(db_host).to(self.device)
-        # host copy of the row norms for the kernel route's L2^2 recovery
-        self._db_sq_host = np.einsum("nd,nd->n", db_host, db_host)
+        # host copy of the row norms for the kernel route's L2^2 recovery,
+        # one einsum per staged chunk of the upload (``db`` may be a disk
+        # memmap: it is read once, and never copied whole into host RAM)
+        self._db_sq_host = np.empty(len(db), np.float32)
+
+        def row_norms(s, blk):
+            self._db_sq_host[s:s + len(blk)] = np.einsum("nd,nd->n", blk, blk)
+        self.db = chunked_device_put(db, self.device, np.float32,
+                                     visit=row_norms)
         self.db_sq = torch.from_numpy(self._db_sq_host).to(self.device)
         self.ntotal = self.db.shape[0]
         # Relative 1e-5 spread test: f32-normalised rows sit at ~1e-7
@@ -205,11 +211,9 @@ class SQ8FlatIndex:
     def _publish(self, q8: np.ndarray, scales: np.ndarray,
                  ids: np.ndarray) -> None:
         dev = self.device
-        self.vecs8 = torch.from_numpy(np.ascontiguousarray(q8)).to(dev)
-        self.scales = torch.from_numpy(
-            np.ascontiguousarray(scales, np.float32)).to(dev)
-        self.ids = torch.from_numpy(
-            np.ascontiguousarray(ids, np.int32)).to(dev)
+        self.vecs8 = chunked_device_put(q8, dev)
+        self.scales = chunked_device_put(scales, dev, np.float32)
+        self.ids = chunked_device_put(ids, dev, np.int32)
         self.rmask = torch.where(self.ids >= 0, 0.0, NEG).to(torch.float32)
 
     @classmethod
@@ -494,18 +498,16 @@ class IVFPQIndex:
                      codebooks=books_np, codes=codes_pad, ids=ids_pad,
                      sub_list=sub_list)
         self._publish(codes_pad, ids_pad, sub_list)
-        self.raw = (torch.from_numpy(np.ascontiguousarray(data, np.float32))
-                    .to(self.device) if self.refine else None)
+        self.raw = (chunked_device_put(data, self.device, np.float32)
+                    if self.refine else None)
         self.ntotal = n
 
     def _publish(self, codes: np.ndarray, ids: np.ndarray,
                  sub_list: np.ndarray) -> None:
         dev = self.device
-        self.codes = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
-        self.ids = torch.from_numpy(
-            np.ascontiguousarray(ids, np.int32)).to(dev)   # row -> orig id
-        self.sub_list = torch.from_numpy(
-            np.ascontiguousarray(sub_list, np.int32)).to(dev)
+        self.codes = chunked_device_put(codes, dev)
+        self.ids = chunked_device_put(ids, dev, np.int32)   # row -> orig id
+        self.sub_list = chunked_device_put(sub_list, dev, np.int32)
         self.n_pad = int(self.codes.shape[0])
 
     @classmethod
@@ -780,15 +782,17 @@ class IVFSQ8Index:
             raise RuntimeError("train() before add()")
         n, dev = len(data), self.device
         q8_flat, scales_flat, _ = _quantize_sq8_host(data, 1, block)
-        buf = torch.empty((n, self.d), dtype=torch.int8, device=dev)
+        buf = chunked_device_put(q8_flat, dev)
+        sc_dev = chunked_device_put(scales_flat, dev)
+        # rows per assignment step: its (rows, nlist) f32 similarity stays
+        # within SCORE_BYTES (nlist 8,192 at 53.6 M rows)
+        step = max(1, self.SCORE_BYTES // (4 * self.nlist))
         assign = np.empty(n, np.int32)
-        for s in range(0, n, block):
-            e = min(s + block, n)
-            blk = torch.from_numpy(q8_flat[s:e]).to(dev)
-            buf[s:e] = blk
-            assign[s:e] = _assign_int8_block(
-                blk, torch.from_numpy(scales_flat[s:e]).to(dev),
+        for s in range(0, n, step):
+            assign[s:s + step] = _assign_int8_block(
+                buf[s:s + step], sc_dev[s:s + step],
                 self.centroids).cpu().numpy()
+        del sc_dev
         counts = np.bincount(assign, minlength=self.nlist)
         self.list_cap = int(max(1, counts.max()))
         starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
@@ -818,12 +822,9 @@ class IVFSQ8Index:
 
     def _publish_meta(self, scales, starts, ids) -> None:
         dev = self.device
-        self.scales = torch.from_numpy(
-            np.ascontiguousarray(scales, np.float32)).to(dev)
-        self.starts = torch.from_numpy(
-            np.ascontiguousarray(starts, np.int64)).to(dev)
-        self.ids = torch.from_numpy(
-            np.ascontiguousarray(ids, np.int32)).to(dev)
+        self.scales = chunked_device_put(scales, dev, np.float32)
+        self.starts = chunked_device_put(starts, dev, np.int64)
+        self.ids = chunked_device_put(ids, dev, np.int32)
 
     @classmethod
     def load(cls, path: str, nprobe: int = 40,
@@ -837,8 +838,7 @@ class IVFSQ8Index:
             idx.list_cap = int(z["list_cap"])
             idx.ntotal = int(z["ntotal"])
             idx.centroids = torch.from_numpy(cents).to(idx.device)
-            idx.vecs8 = torch.from_numpy(
-                np.ascontiguousarray(z["vecs8"])).to(idx.device)
+            idx.vecs8 = chunked_device_put(z["vecs8"], idx.device)
             idx._publish_meta(z["scales"], z["starts"], z["ids"])
         idx._trained = True
         return idx

@@ -49,6 +49,10 @@ RB = 64                     # DB rows per scan tile (every scan)
 # (csrc/topk_masked.cu); one wave
 MASKED_CTAS_PER_SM = 2
 PLAIN_LOGITS_BUDGET = 1 << 30   # bytes of one (block, N) plain score matrix
+# Rows a scan takes: row numbers, chunk starts and ends are int32 in csrc/
+# (a chunk's end, row_begin + chunk_rows, stays below 1.5 N + RB < 2^31
+# up to here); every byte offset into the rows is a size_t product.
+MAX_ROWS = 1 << 30
 
 LAUNCHES: Dict[str, int] = {"topk_ip": 0, "topk_ip_sq8": 0,
                            "topk_ip_masked": 0}
@@ -262,6 +266,8 @@ def _launch(fn, counts: Dict[str, int], counter: str, q: torch.Tensor,
     ``counts[counter]`` once it launched."""
     bq, d = q.shape
     dev = q.device
+    if n > MAX_ROWS:
+        raise ValueError(f"{n} rows: a scan takes at most {MAX_ROWS}")
     chunk_rows, n_chunks = _grid(bq, n, dev, ctas_per_sm)
     part_v = torch.empty((bq, n_chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((bq, n_chunks, k), dtype=torch.int32, device=dev)

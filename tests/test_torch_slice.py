@@ -186,8 +186,10 @@ def _port_sources():
 
 
 def test_port_sources_import_neither_jax_nor_nafp_tpu():
-    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|nafp_tpu)"
-                     r"(\.|\s|$)", re.M)
+    """Nor the JAX package's scripts (``extras``): the port keeps its own
+    copies of their numpy helpers."""
+    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|nafp_tpu|"
+                     r"extras)(\.|\s|$)", re.M)
     files = _port_sources()
     assert len(files) > 15
     for path in files:
@@ -210,7 +212,7 @@ def test_port_modules_load_without_jax():
         f"{os.path.join(REPO, 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'nafp_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'nafp_tpu', 'extras')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -151,6 +151,18 @@ def test_wrappers_reject_bad_arguments():
                       200)
 
 
+def test_scans_refuse_rows_past_int32_chunk_ends():
+    """Row numbers and chunk ends are int32 in csrc/: a launch past
+    MAX_ROWS rows raises before it plans a grid (checked before any card
+    query, so it runs here)."""
+    with pytest.raises(ValueError, match="at most"):
+        T._launch(None, {}, "topk_ip", torch.zeros(1, 128),
+                  [], T.MAX_ROWS + 1, 20, 1)
+    # the last chunk's end: below N + N / 2 + RB with two chunks or more,
+    # below N + RB with one
+    assert T.MAX_ROWS + T.MAX_ROWS // 2 + T.RB < 2 ** 31
+
+
 def test_launch_counters_untouched_on_cpu(rng):
     """The CPU route is the plain version: no kernel launch is counted."""
     T.reset_launches()
