@@ -76,7 +76,21 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    ``extras/bench_train_step.py -c 640_lamb --steps 10`` (finite loss);
    then B1 and B2 over more than 16,777,216 rows (past 2^31 elements of
    the DB): the planted best row of each query, in the tail, is found,
-   and equals the plain version's top-1 over the tail alone.
+   and equals the plain version's top-1 over the tail alone;
+9. the sharded search and the multi-device paths, on one card: ``evaluate
+   -i l2-sharded``, ``-i sq8-sharded`` and ``-i ivf-sq8-sharded`` through
+   the CLI (one shard: every local card) with phase 3's stores, their
+   raw_score.npy equal to ``-i l2`` / ``sq8`` / ``ivf-sq8``'s (the last on
+   the first 500 test ids) and B1's launches the ``-i l2`` run's; the API
+   at 4 logical shards on cuda:0 against one shard (B1 and B2 per shard,
+   the merge on the card): top-1 equal on every query, scores within
+   1e-6, ids equal wherever the k-th gap is clear, IVF-SQ8's top-1 never
+   below its probed lists' best row; B1 and B2 on a shard against their
+   plain versions; a SQ8FlatIndex store in the sharded index and a sharded
+   store in SQ8FlatIndex; ``generate`` with ``MESH_DATA_PARALLEL -1``
+   equal to phase 3's memmaps bit for bit; ``cli train -c 640_lamb`` for a
+   quarter epoch under a one-rank NCCL group started through ``NAFP_*``,
+   its losses within a tolerance fixed from two plain runs.
 
 Every phase raises on failure; nothing is caught. The last lines are the
 ``{"kernels": [...]}`` record, the card's name and power limit as
@@ -182,6 +196,22 @@ GT_GAP_MIN = 1e-6
 # rows past 2^31 / 128: a DB whose byte (f32) and element (int8) offsets
 # pass 2^31; the best rows are planted past PLANT_FROM
 PLANT_ROWS, PLANT_FROM = 17_301_504, 1 << 24
+# Phase 9, sharded search and the multi-device paths on one card: logical
+# shards of the protocol DB on cuda:0, and the protocol queries the API's
+# searches take
+SHARDS, SHARD_QUERIES = 4, 1024
+# R shards against one: the same scores, and the same ids wherever the
+# k-th and (k+1)-th scores lie further apart than this
+SHARD_SCORE_ATOL = SHARD_GAP = 1e-6
+# test ids of the ivf-sq8-sharded evaluate: the first of phase 3's 2,000
+# (one permutation), so its raw_score.npy rows are phase 3's first rows
+IVF_SHARDED_TEST = 500
+# cli train -c 640_lamb under a one-rank NCCL group: a quarter of the epoch
+NCCL_TRAIN_REDUCE_P = 25
+# the group's epoch losses within NCCL_LOSS_SPREAD x the spread of two
+# plain runs in the same call (cuDNN's backward is not deterministic), plus
+# a relative floor for a spread of 0
+NCCL_LOSS_SPREAD, NCCL_LOSS_FLOOR = 4.0, 1e-5
 
 
 
@@ -1047,7 +1077,8 @@ def phase_main_path(dev):
                 rates={k: r["summary"]["rates"] for k, r in results.items()},
                 profile=profile, cfg=cfg, cfg_path=cfg_path,
                 dummy_dir=dummy_dir, emb_dir=emb_dir, variables=variables,
-                l2_top1=top1["l2"], data=data)
+                l2_top1=top1["l2"], data=data,
+                raw={k: r["raw"] for k, r in results.items()})
 
 
 def ivfsq8_union_topk(idx, q, k, block=16):
@@ -1143,7 +1174,7 @@ def phase_ivf_sq8(dev, main_path):
     return dict(summary=summary, wall_s=wall, launches=launches,
                 top1_agreement_with_l2=agree, profile=prof,
                 union_max_abs_err=err, nlist=idx.nlist,
-                list_cap=idx.list_cap)
+                list_cap=idx.list_cap, raw=raw, store=store)
 
 
 def protocol_db(main_path):
@@ -2228,6 +2259,345 @@ def check_past_2g(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: sharded search, generate over the cards, a one-rank NCCL group
+# ---------------------------------------------------------------------------
+def ivfsq8_lists_best(idx, q, block=16):
+    """Each query's best score over the rows of its probed lists only
+    (not the slice tails past a list's end): every layout of the store, at
+    any shard count, scans each of these rows, so its top-1 can be no
+    lower. Plain torch ops: the index's f32 coarse probe, bf16-rounded
+    queries times the int8 rows in f32, times the row scale."""
+    import torch
+    from nafp_tpu_torch.search.topk import topk_low_index
+    dev = idx.vecs8.device
+    counts = torch.diff(idx.starts, append=torch.tensor(
+        [idx.ntotal], device=dev))
+    out = []
+    for s in range(0, len(q), block):
+        qd = torch.from_numpy(q[s:s + block]).to(dev)
+        _, probes = topk_low_index(qd @ idx.centroids.T, idx.nprobe)
+        off = torch.arange(idx.list_cap, device=dev)
+        rows = idx.starts[probes][:, :, None] + off
+        inside = (off < counts[probes][:, :, None]).view(len(qd), -1)
+        rows = rows.view(len(qd), -1)
+        qb = qd.to(torch.bfloat16).to(torch.float32)
+        score = torch.einsum("qd,qnd->qn", qb,
+                             idx.vecs8[rows].to(torch.float32))
+        score = (score * idx.scales[rows]).masked_fill(~inside,
+                                                        float("-inf"))
+        out.append(score.max(1).values)
+    return torch.cat(out).cpu().numpy()
+
+
+def phase_sharded(dev, main_path, ivf_sq8):
+    """``evaluate -i l2-sharded / sq8-sharded / ivf-sq8-sharded`` through
+    the CLI on one card (R = 1): raw_score.npy equal to phase 3's ``-i l2
+    / sq8 / ivf-sq8`` (the stores phase 3 persisted); the API at SHARDS
+    logical shards on cuda:0 against one shard (B1 and B2 per shard, the
+    merge on the card), B1 and B2 on a shard held against their plain
+    versions, a SQ8FlatIndex store in the sharded index and a sharded
+    store in SQ8FlatIndex; ``generate`` over ``MESH_DATA_PARALLEL -1`` (every
+    card: one) against phase 3's memmaps, bit for bit; ``cli train -c
+    640_lamb`` under a one-rank NCCL group started through ``NAFP_*``
+    against two plain runs."""
+    import copy
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import yaml
+    from nafp_tpu_torch.cli import main as cli
+    from nafp_tpu_torch.data.audio_io import load_memmap
+    from nafp_tpu_torch.search import index as I
+    from nafp_tpu_torch.search import sharded as S
+    from nafp_tpu_torch.search import topk as T
+
+    out = {"launches_by_run": {}}
+    emb_dir = main_path["emb_dir"]
+    sq8_store = os.path.join(WORK, "sq8_store.npz")
+
+    # --- the sharded types through the CLI, one card: one shard ----------
+    runs = (("l2-sharded", "l2", main_path["raw"]["l2"], [], "topk_ip"),
+            ("sq8-sharded", "sq8", main_path["raw"]["sq8"],
+             ["--index_cache", sq8_store], "topk_ip_sq8"),
+            ("ivf-sq8-sharded", "ivf-sq8",
+             ivf_sq8["raw"][:IVF_SHARDED_TEST],
+             ["--nprobe", str(NPROBE), "--index_cache", ivf_sq8["store"]],
+             None))
+    twin_ms = dict(main_path["ms_per_query"],
+                   **{"ivf-sq8": ivf_sq8["summary"]["ms_per_query"]})
+    out["cli"] = {}
+    for itype, twin, want, extra, kernel in runs:
+        T.reset_launches()
+        t0 = time.perf_counter()
+        cli(["evaluate", NAME, str(INDEX), "-c", main_path["cfg_path"], "-i",
+             itype, "-t", str(len(want)), "--emb_dummy_dir",
+             main_path["dummy_dir"], *extra], standalone_mode=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = dict(T.LAUNCHES)
+        out["launches_by_run"][itype] = n
+        with open(os.path.join(emb_dir, "eval_summary.json")) as f:
+            summary = json.load(f)
+        raw = np.load(os.path.join(emb_dir, "raw_score.npy"))
+        if (summary["index_type"] != itype or summary["n_db"] != N_DB_ROWS
+                or summary["n_test"] != len(want)):
+            raise AssertionError(f"evaluate -i {itype}: {summary}")
+        if not np.array_equal(raw, want):
+            raise AssertionError(
+                f"evaluate -i {itype}: raw_score.npy differs from -i "
+                f"{twin}'s at {int((raw != want).sum())} entries")
+        launched = {k: v for k, v in n.items() if v}
+        if set(launched) != ({kernel} if kernel else set()):
+            raise AssertionError(f"evaluate -i {itype} launched {launched}")
+        if kernel == "topk_ip" and n[kernel] != B1_LAUNCHES_PER_RUN:
+            raise AssertionError(f"evaluate -i {itype}: {n[kernel]} B1 "
+                                 f"launches, predicted {B1_LAUNCHES_PER_RUN}")
+        log(f"  evaluate -i {itype} (one card, one shard; {len(want)} ids): "
+            f"raw_score.npy equal to -i {twin}'s; {summary['ms_per_query']}"
+            f" ms/query (-i {twin}: {twin_ms[twin]}), build "
+            f"{summary['build_sec']} s, wall {wall:.1f} s, launches "
+            f"{launched}")
+        out["cli"][itype] = dict(ms_per_query=summary["ms_per_query"],
+                                 twin_ms_per_query=twin_ms[twin],
+                                 build_sec=summary["build_sec"],
+                                 wall_s=wall, launches=launched,
+                                 n_test=len(want))
+
+    # --- the API at SHARDS logical shards on cuda:0 against one ----------
+    db, query = protocol_db(main_path)
+    rng = np.random.default_rng(SEED + 9)
+    qs = np.ascontiguousarray(query[rng.choice(len(query), SHARD_QUERIES,
+                                               replace=False)])
+    one, many = [dev], [dev] * SHARDS
+    out["api"] = {}
+
+    def timed_search(idx, k, tag=None):
+        idx.search(qs[:8], k)                               # warm
+        T.reset_launches()
+        t0 = time.perf_counter()
+        res = idx.search(qs, k)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if tag:
+            out["launches_by_run"][tag] = dict(T.LAUNCHES)
+        return res, ms
+
+    def against_one(tag, idx1, idx_r, kernel):
+        rv, ri = idx1.search(qs, K + 1)
+        (_, _), ms1 = timed_search(idx1, K)
+        (gv, gi), ms_r = timed_search(idx_r, K, tag)
+        err = float(np.abs(gv - rv[:, :K]).max())
+        clear = (rv[:, K - 1] - rv[:, K]) > SHARD_GAP
+        n = out["launches_by_run"][tag][kernel]
+        if not (np.array_equal(gi[:, 0], ri[:, 0])
+                and err <= SHARD_SCORE_ATOL
+                and np.array_equal(gi[clear], ri[clear, :K]) and n > 0):
+            raise AssertionError(
+                f"{tag}: top-1 equal {float((gi[:, 0] == ri[:, 0]).mean())},"
+                f" score error {err}, ids equal where the gap is clear "
+                f"{float((gi[clear] == ri[clear, :K]).mean())}, {n} "
+                f"{kernel} launches")
+        log(f"  {tag}: top-1 equal to one shard's on {len(qs)} of "
+            f"{len(qs)} queries, scores within {err:.2e}, ids equal on the "
+            f"{int(clear.sum())} queries with a k-th gap > {SHARD_GAP}; "
+            f"{ms_r:.1f} ms for {len(qs)} queries against {ms1:.1f} ms at "
+            f"one shard; {n} {kernel} launches")
+        out["api"][tag] = dict(ms=ms_r, ms_one_shard=ms1, max_abs_err=err,
+                               clear_gap=int(clear.sum()), launches=n)
+        return ri[:, :K], rv[:, :K]
+
+    flat1 = S.ShardedFlatIndex(db, devices=one)
+    flat_r = S.ShardedFlatIndex(db, devices=many)
+    against_one(f"l2-sharded, {SHARDS} shards", flat1, flat_r, "topk_ip")
+    del flat1
+    sq1 = S.ShardedSQ8FlatIndex.load(sq8_store, devices=one)
+    sq_r = S.ShardedSQ8FlatIndex.load(sq8_store, devices=many)
+    sq_ids, sq_v = against_one(f"sq8-sharded, {SHARDS} shards (phase 3's "
+                               "SQ8FlatIndex store)", sq1, sq_r,
+                               "topk_ip_sq8")
+    del sq1
+
+    # B1 and B2 on the last shard (its rows no multiple of the kernels'
+    # 64-row tile; B2's shard ends in pad rows) against their plain versions
+    shard = flat_r.shards[-1]
+    q512 = torch.from_numpy(qs[:512]).to(dev)
+    v, i = T.topk_ip(q512, shard.db, K)
+    pv, pi = T.topk_ip_plain(q512, shard.db, K)
+    tag = f"B1 on shard {SHARDS - 1} (Bq 512, N {shard.ntotal}, k {K})"
+    b1_err = check_topk(tag, v, i, pv, pi, lambda ids: torch.einsum(
+        "bd,bkd->bk", q512.double(), shard.db.double()[ids]))
+    # bounds as phase 2 counts them: 3xTF32 products (B1), bf16 (B2)
+    b1 = dict(rows=shard.ntotal, max_abs_err=b1_err,
+              bound_ms=1e3 * max(3 * 2.0 * 512 * shard.ntotal * 128
+                                 / PEAK_TF32,
+                                 (4.0 * (shard.ntotal + 512) * 128
+                                  + 8.0 * 512 * K) / PEAK_BYTES),
+              ms=time_ms(lambda: T.topk_ip(q512, shard.db, K), 20),
+              plain_ms=time_ms(lambda: T.topk_ip_plain(q512, shard.db, K),
+                               3))
+    sh = sq_r.shards[-1]
+    q1024 = torch.from_numpy(qs).to(dev)
+    args = (q1024, sh["vecs8"], sh["scales"], sh["rmask"], K)
+    v, i = T.topk_ip_sq8(*args)
+    pv, pi = T.topk_ip_sq8_plain(*args, compute_dtype=torch.bfloat16)
+    qb = q1024.to(torch.bfloat16).double()
+    real = int((sh["ids"] >= 0).sum())
+    tag = (f"B2 on shard {SHARDS - 1} (Bq 1024, N {len(sh['ids'])}, "
+           f"{real} of them real rows, k {K})")
+    b2_err = check_topk(tag, v, i, pv, pi, lambda ids: torch.einsum(
+        "bd,bkd->bk", qb, sh["vecs8"].double()[ids])
+        * sh["scales"].double()[ids] + sh["rmask"].double()[ids])
+    n2 = len(sh["ids"])
+    b2 = dict(rows=n2, real_rows=real, max_abs_err=b2_err,
+              bound_ms=1e3 * max(2.0 * 1024 * n2 * 128 / PEAK_BF16,
+                                 (n2 * (128 + 8) + 4.0 * 1024 * 128
+                                  + 8.0 * 1024 * K) / PEAK_BYTES),
+              ms=time_ms(lambda: T.topk_ip_sq8(*args), 20),
+              plain_ms=time_ms(lambda: T.topk_ip_sq8_plain(
+                  *args, compute_dtype=torch.bfloat16), 3))
+    log(f"  per shard: B1 {b1['ms']:.3f} ms (plain {b1['plain_ms']:.3f}), "
+        f"B2 {b2['ms']:.3f} ms (plain {b2['plain_ms']:.3f})")
+    out["shard_kernels"] = dict(topk_ip=b1, topk_ip_sq8=b2)
+    del flat_r, sq_r, shard, sh
+
+    # a store the sharded index persisted, in the single-device index
+    path = os.path.join(WORK, "sq8_sharded_store.npz")
+    S.ShardedSQ8FlatIndex(devices=many).add(db, persist_path=path)
+    with np.load(path) as a, np.load(sq8_store) as b:
+        same = all(np.array_equal(a[key][:N_DB_ROWS], b[key][:N_DB_ROWS])
+                   for key in ("vecs8", "scales", "ids"))
+        same = same and int(a["ntotal"]) == int(b["ntotal"]) == N_DB_ROWS
+    sv, si = I.SQ8FlatIndex.load(path, device=dev).search(qs, K)
+    if not (same and np.array_equal(si, sq_ids) and np.array_equal(sv, sq_v)):
+        raise AssertionError("the store ShardedSQ8FlatIndex persisted: rows "
+                             f"equal to phase 3's {same}; SQ8FlatIndex over "
+                             "it differs from one shard's search")
+    log(f"  a {SHARDS}-shard sq8 store (written by ShardedSQ8FlatIndex.add) "
+        "holds phase 3's rows and, in SQ8FlatIndex, returns one shard's ids "
+        "and scores")
+
+    # IVF-SQ8 dealt over SHARDS shards: each shard scans ceil(cap/R) rows a
+    # probed list, so the slice tails past a list's end differ from one
+    # shard's; every row of the probed lists is scanned by both
+    ivf1 = S.ShardedIVFSQ8Index.load(ivf_sq8["store"], nprobe=NPROBE,
+                                     devices=one)
+    ivf_r = S.ShardedIVFSQ8Index.load(ivf_sq8["store"], nprobe=NPROBE,
+                                      devices=many)
+    (v1, i1), ms1 = timed_search(ivf1, K)
+    (vr, ir), ms_r = timed_search(ivf_r, K, f"ivf-sq8-sharded, {SHARDS} "
+                                            "shards")
+    gate = slice(0, IVFSQ8_GATE_QUERIES)
+    best = ivfsq8_lists_best(I.IVFSQ8Index.load(
+        ivf_sq8["store"], nprobe=NPROBE, device=dev), qs[gate])
+    low = {r: int((v[gate, 0] < best - SHARD_SCORE_ATOL).sum())
+           for r, v in ((1, v1), (SHARDS, vr))}
+    agree = float((ir[:, 0] == i1[:, 0]).mean())
+    log(f"  ivf-sq8-sharded, {SHARDS} shards (list_cap {ivf_r.list_cap} "
+        f"against {ivf1.list_cap}): top-1 equal to one shard's on {agree:.4f}"
+        f" of {len(qs)} queries; top-1 below the best row of the probed "
+        f"lists on {low} of {IVFSQ8_GATE_QUERIES}; {ms_r:.1f} ms against "
+        f"{ms1:.1f} ms at one shard")
+    if any(low.values()):
+        raise AssertionError(f"ivf-sq8-sharded: a top-1 below its probed "
+                             f"lists' best row: {low}")
+    out["api"][f"ivf-sq8-sharded, {SHARDS} shards"] = dict(
+        ms=ms_r, ms_one_shard=ms1, top1_agree=agree,
+        list_cap=ivf_r.list_cap, list_cap_one_shard=ivf1.list_cap)
+    del ivf1, ivf_r, db
+
+    # --- generate over every card (MESH_DATA_PARALLEL -1) ----------------
+    cfg = copy.deepcopy(main_path["cfg"])
+    cfg["DEVICE"]["MESH_DATA_PARALLEL"] = -1
+    cfg_path = os.path.join(WORK, "smoke_mesh.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    t0 = time.perf_counter()
+    cli(["generate", NAME, str(INDEX), "-c", cfg_path, "--yes", "-o",
+         os.path.join(WORK, "emb_mesh")], standalone_mode=False)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    for key in ("dummy_db", "db", "query"):
+        a, _ = load_memmap(os.path.join(WORK, "emb_mesh", NAME, str(INDEX)),
+                           key, display=False)
+        b, _ = load_memmap(emb_dir, key, display=False)
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError(f"generate with MESH_DATA_PARALLEL -1: "
+                                 f"{key}.mm differs from phase 3's")
+    log(f"  generate with MESH_DATA_PARALLEL -1 ({torch.cuda.device_count()}"
+        f" card): memmaps equal to phase 3's bit for bit; {gen_s:.2f} s "
+        f"({main_path['gen_segments'] / gen_s:.1f} segments/s)")
+    out["generate_s"] = gen_s
+
+    # --- cli train -c 640_lamb under a one-rank NCCL group ---------------
+    data = os.path.join(WORK, "train_data")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    train = {}
+    for tag in ("plain", "plain again", "one-rank nccl"):
+        c = train_corpus_cfg(data, "640_lamb")
+        c["DATA_SEL"]["REDUCE_ITEMS_P"] = NCCL_TRAIN_REDUCE_P
+        c["DEVICE"]["DEVICE_CORPUS"] = False
+        c["TRAIN"].update(MINI_TEST_IN_TRAIN=False, SAVE_IMG=False)
+        name = "smoke_nccl_" + tag.replace(" ", "_").replace("-", "_")
+        path = os.path.join(WORK, name + ".yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(c, f)
+        env = ({"NAFP_COORDINATOR": f"localhost:{port}",
+                "NAFP_NUM_PROCESSES": "1", "NAFP_PROCESS_ID": "0"}
+               if "nccl" in tag else {})
+        os.environ.update(env)
+        try:
+            t0 = time.perf_counter()
+            cli(["train", name, "-c", path, "--max_epoch", "1"],
+                standalone_mode=False)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if env:
+                backend = "nccl" if dev.type == "cuda" else "gloo"
+                if not (dist.is_initialized()
+                        and dist.get_backend() == backend
+                        and dist.get_world_size() == 1):
+                    raise AssertionError("cli train did not run under a "
+                                         f"one-rank {backend} group")
+                t = torch.arange(4.0, device=dev)
+                dist.all_reduce(t)
+                if not torch.equal(t, torch.arange(4.0, device=dev)):
+                    raise AssertionError(f"NCCL all_reduce over one rank: {t}")
+        finally:
+            for k in env:
+                os.environ.pop(k)
+            if env and dist.is_initialized():
+                dist.destroy_process_group()
+        (run,) = train_runs(name)
+        m = train_metrics(run)
+        train[tag] = dict(train_loss=m["loss/train"][1],
+                          val_loss=m["loss/val"][1],
+                          step_ms=m["throughput/step_ms"][1],
+                          steps=ckpt_meta(name, 1)["step"], cli_s=secs)
+    a, b, g = (train[t] for t in ("plain", "plain again", "one-rank nccl"))
+    for key in ("train_loss", "val_loss"):
+        tol = NCCL_LOSS_SPREAD * abs(a[key] - b[key]) \
+            + NCCL_LOSS_FLOOR * abs(a[key])
+        if not (abs(g[key] - a[key]) <= tol and abs(g[key] - b[key]) <= tol
+                and np.isfinite(g[key]) and a["steps"] == g["steps"] > 0):
+            raise AssertionError(f"640_lamb under one-rank NCCL: {key} "
+                                 f"{g[key]} against {a[key]}, {b[key]} "
+                                 f"(tolerance {tol}); steps {a['steps']}, "
+                                 f"{g['steps']}")
+        train[tag + " tolerance " + key] = tol
+    log("  cli train -c 640_lamb, " + f"{a['steps']} steps: " + "; ".join(
+        f"{t} train loss {r['train_loss']:.6f}, val loss "
+        f"{r['val_loss']:.6f}, {r['step_ms']:.1f} ms/step"
+        for t, r in train.items() if isinstance(r, dict))
+        + "; the group's losses within the tolerance from the plain runs")
+    out["train"] = train
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2246,7 +2616,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = resolve_device()
     smi = nvidia_smi_line()
-    log(f"[1/8] device: {torch.cuda.get_device_name(0)} x "
+    log(f"[1/9] device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     build_s, logs = kernels.build_all()
@@ -2267,34 +2637,40 @@ def main() -> int:
         log(f"  ({name} took {phase_s[name]:.1f} s)")
         return out
 
-    log("[2/8] kernels against their plain versions")
+    log("[2/9] kernels against their plain versions")
     rec = timed("kernels", phase_kernels, dev)
-    log("[3/8] serving path through the CLI (full width)")
+    log("[3/9] serving path through the CLI (full width)")
     main_path = timed("main path", phase_main_path, dev)
     ivf_sq8 = timed("IVF-SQ8", phase_ivf_sq8, dev, main_path)
     ivfpq = timed("IVF-PQ store", phase_ivfpq_store, dev, main_path)
-    log("[4/8] the sq8 kernel bench (B4a, B4b)")
+    log("[4/9] the sq8 kernel bench (B4a, B4b)")
     bench = timed("sq8 kernel bench", phase_bench, dev, rec["b4"])
-    log("[5/8] card against CPU")
+    log("[5/9] card against CPU")
     enc = timed("card vs CPU", phase_card_vs_cpu, dev, main_path, ivfpq)
-    log("[6/8] the device-resident corpus")
+    log("[6/9] the device-resident corpus")
     corpus = timed("device corpus", phase_device_corpus, dev, main_path)
-    log("[7/8] training path (full width)")
+    log("[7/9] training path (full width)")
     training = timed("training", phase_training, dev)
-    log("[8/8] the measurement entry points")
+    log("[8/9] the measurement entry points")
     measurement = timed("measurement", phase_measurement, dev)
+    log("[9/9] sharded search, generate over the cards, a one-rank NCCL "
+        "group")
+    sharded = timed("sharded", phase_sharded, dev, main_path, ivf_sq8)
 
     kernels_line = []
     for name in ("topk_ip", "topk_ip_sq8", "topk_ip_masked"):
         r = dict(rec[name])
-        r["launches"] = main_path["launches"][name]
-        r["launches_by_run"] = {
-            run: n[name] for run, n in main_path["launches_by_run"].items()
-            if n[name]}
+        by_run = {**main_path["launches_by_run"],
+                  **sharded["launches_by_run"]}
+        r["launches"] = sum(n[name] for n in by_run.values())
+        r["launches_by_run"] = {run: n[name] for run, n in by_run.items()
+                                if n[name]}
         r["launches_by_entry_point"] = {
             tag: n[name] for tag, n in measurement["launches"].items()
             if n[name]}
         kernels_line.append(r)
+    kernels_line[0]["shard"] = sharded["shard_kernels"]["topk_ip"]
+    kernels_line[1]["shard"] = sharded["shard_kernels"]["topk_ip_sq8"]
     kernels_line[1].update(ms_k80=rec["b4"]["main_shape_ms"]["b2_k80"],
                            launches_bench=bench["launches"]["topk_ip_sq8"],
                            ms_bench=bench["results"]["v0"]["ms"],
@@ -2324,8 +2700,10 @@ def main() -> int:
         r["max_err"] = r["max_abs_err"]
     summary = {k: v for k, v in main_path.items()
                if k not in ("cfg", "variables", "cfg_path", "dummy_dir",
-                            "emb_dir", "l2_top1", "data")}
-    summary.update(enc, training=training, ivf_sq8=ivf_sq8,
+                            "emb_dir", "l2_top1", "data", "raw")}
+    summary.update(enc, training=training, sharded=sharded,
+                   ivf_sq8={k: v for k, v in ivf_sq8.items()
+                            if k not in ("raw", "store")},
                    measurement=measurement,
                    device_corpus=corpus,
                    data_dependence=ivfpq["data_dependence"],

@@ -10,7 +10,10 @@ fingerprint generation to memmaps, exact search (``l2``/``ip``/``ivf`` over
 f32, ``sq8``/``sq8-flat`` over int8), IVF-PQ, with hand-written CUDA top-k
 kernels, and the ICASSP sequence-search protocol) and the training path
 (NT-Xent, Adam/LAMB, time-domain and spectral augmentation, the trainer
-with checkpoints and resume, the in-training mini-search).
+with checkpoints and resume, the in-training mini-search), and their
+multi-device forms (the sharded indexes, generate over several cards,
+data-parallel training with one process per card on
+``torch.distributed``).
 
 Package layout
 --------------
@@ -21,10 +24,10 @@ Package layout
 - ``losses``   — NT-Xent
 - ``optim``    — LAMB, the learning-rate schedules, optimizer selection
 - ``train``    — the trainer and its checkpoint/metrics helper
-- ``parallel`` — process-level data sharding
+- ``parallel`` — devices of a data-parallel pass, process groups, collectives
 - ``utils``    — profiling and step timing
-- ``search``   — top-k kernels, indexes, sequence re-ranking, evaluation,
-                 the in-training mini-search
+- ``search``   — top-k kernels, indexes (sharded ones too), sequence
+                 re-ranking, evaluation, the in-training mini-search
 - ``csrc``     — CUDA C++ sources of the kernels (built with nvcc at first use)
 """
 

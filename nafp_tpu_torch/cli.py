@@ -96,11 +96,14 @@ def generate(checkpoint_name, checkpoint_index, config, source, output,
 @click.option("--config", "-c", default="default", type=click.STRING,
               help="Config preset name; resolved to config/<NAME>.yaml.")
 @click.option("--index_type", "-i", default="ivfpq", type=click.STRING,
-              help="Ported: 'ivfpq' (default; IVF-PQ, nlist 256, 8-bit "
-                   "codes), 'ivfpq-rr' (IVF-PQ + exact f32 re-rank), 'l2', "
-                   "'ip', 'ivf' (exact f32), 'sq8', 'sq8-flat' (exact "
-                   "int8). The JAX package's other types ('ivf-sq8', "
-                   "'hnsw', the sharded ones) raise until they are ported.")
+              help="'ivfpq' (default; IVF-PQ, nlist 256, 8-bit codes), "
+                   "'ivfpq-rr' (IVF-PQ + exact f32 re-rank), 'l2', 'ip', "
+                   "'ivf' (exact f32), 'sq8', 'sq8-flat' (exact int8), "
+                   "'ivf-sq8' (int8 rows in coarse lists), 'hnsw' (host "
+                   "graph), and 'l2-sharded', 'sq8-sharded', "
+                   "'ivf-sq8-sharded': the rows split over every local card "
+                   "(one shard on a one-card host; one CPU shard with "
+                   "--nogpu).")
 @click.option("--test_seq_len", default="1 3 5 9 11 19", type=click.STRING,
               help="Space-separated segment counts to test "
                    "(default '1 3 5 9 11 19' = 1s..10s).")
@@ -119,9 +122,10 @@ def generate(checkpoint_name, checkpoint_index, config, source, output,
               help="Max vectors subsampled for index training "
                    "(reference default 1e7).")
 @click.option("--index_cache", default=None, type=click.STRING,
-              help="npz path for the built int8 store (sq8/sq8-flat): "
-                   "loaded when present, written after a fresh build. "
-                   "IVF-PQ stores are not cached (as in the JAX package).")
+              help="npz path for the built int8 store (sq8, sq8-flat, "
+                   "ivf-sq8 and their sharded twins): loaded when present, "
+                   "written after a fresh build. IVF-PQ stores are not "
+                   "cached (as in the JAX package).")
 @click.option("--ef_search", default=64, type=click.INT,
               help="Query-time beam width for the hnsw index; ignored by "
                    "the ported (exact) families.")

@@ -1,6 +1,6 @@
 """Fingerprint generation: stream datasets through the encoder to memmaps.
 
-Counterpart of ``nafp_tpu/generate.py`` on one device (reference
+Counterpart of ``nafp_tpu/generate.py`` (reference
 ``model/generate.py:91-194``). Same on-disk contract:
 ``{dummy_db,db,query,custom_source}.mm`` float32 (n_items, d) plus
 ``{key}_shape.npy`` under ``OUTPUT_ROOT_DIR/CHECKPOINT_NAME/INDEX/``, so
@@ -24,6 +24,16 @@ is left out of the chain (the JAX package mixes zeros in its place).
 ``DEVICE.DEVICE_CORPUS``: every source whose songs fit
 ``DEVICE_CORPUS_MAX_GB`` is uploaded once and its batches are gathered on
 the card (``data/device_corpus.py``); the memmaps are the same.
+
+``DEVICE.MESH_DATA_PARALLEL`` (-1 = every local card): the pass runs over
+``parallel.mesh.data_devices`` in one process, the JAX package's batch
+sharding over its mesh. The model is replicated on each device, a batch's
+rows are zero-padded to a multiple of the device count and split, the
+log-mel max is the whole batch's (the max of the devices' maxima, as the
+JAX package's one program over the mesh takes it), and the embeddings are
+reassembled in row order; the pad rows land past ``n_valid``. Batches come
+up to, and ``unseen_syn`` queries are synthesized on, the first device.
+With one device the pass is the single-device one.
 """
 from __future__ import annotations
 
@@ -43,8 +53,9 @@ from nafp_tpu_torch.device import DeviceLike, resolve_device
 from nafp_tpu_torch.models.convert import (find_params, flax_to_torch,
                                            load_params_npz)
 from nafp_tpu_torch.models.nnfp import get_fingerprinter
-from nafp_tpu_torch.ops.melspec import get_melspec_fn
+from nafp_tpu_torch.ops.melspec import get_melspec_fn, melspectrogram_parts
 from nafp_tpu_torch.ops.tdaug import augment_replicas
+from nafp_tpu_torch.parallel.mesh import data_devices
 
 
 def load_params(cfg: Dict[str, Any], checkpoint_name: str,
@@ -94,12 +105,30 @@ def generate_fingerprint(cfg: Dict[str, Any],
                          assume_yes: bool = False,
                          device: DeviceLike = None) -> str:
     """Write the fingerprint memmaps; returns the output directory.
-    ``device`` defaults to ``cuda:0`` (raises when no card is present)."""
+    ``device`` defaults to ``cuda:0`` (raises when no card is present);
+    the pass runs over ``data_devices(cfg, device)``."""
     device = resolve_device(device)
-    melspec_fn, _ = get_melspec_fn(cfg)
+    devices = data_devices(cfg, device)
+    device = devices[0]
+    melspec_fn, mcfg = get_melspec_fn(cfg)
     variables, checkpoint_index = load_params(cfg, checkpoint_name,
                                               checkpoint_index)
-    model = build_model(cfg, variables, device)
+    models = [build_model(cfg, variables, device)]
+    if len(devices) > 1:
+        print(f"[generate] fingerprint pass over {len(devices)} devices: "
+              f"{', '.join(map(str, devices))}")
+        models += [build_model(cfg, variables, d) for d in devices[1:]]
+
+    def fingerprint(x: torch.Tensor) -> torch.Tensor:
+        if len(devices) == 1:
+            return models[0](melspec_fn(x))
+        pad = (-x.shape[0]) % len(devices)
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        parts = [c.to(d) for c, d in zip(x.chunk(len(devices)), devices)]
+        feats = melspectrogram_parts(parts, mcfg)
+        embs = [m(f) for m, f in zip(models, feats)]   # all launched first
+        return torch.cat([e.to(device) for e in embs])
 
     dataset = Dataset(cfg)
     ds = get_data_source(cfg, dataset, source_root_dir, skip_dummy)
@@ -146,7 +175,7 @@ def generate_fingerprint(cfg: Dict[str, Any],
                                          use_bg=use_bg, use_ir=use_ir)
                 else:
                     x = to_dev(batch, "anchors")
-                emb = model(melspec_fn(x))
+                emb = fingerprint(x)
                 n_valid = int(batch["n_valid"]) * n_rep
                 arr[row:row + n_valid] = emb[:n_valid].float().cpu().numpy()
                 row += n_valid

@@ -12,9 +12,11 @@ The loss is written for a shard of a larger batch: a caller holding
 ``n_local`` rows passes the gathered global rows and its ``offset`` among
 them, computes only its rows of the global logits, and divides by the
 global row count, so the shards' losses sum to the whole batch's. With
-one replica (no ``gathered``) it is the plain single-device loss. The
-cross-process ``all_gather`` belongs to the multi-process slice
-(ROADMAP.md Queue 1 item 11).
+one replica (no ``gathered``) it is the plain single-device loss. Under
+``torch.distributed`` the trainer gathers the rows with
+``parallel.mesh.all_gather`` (whose backward sums the cotangent over the
+ranks), passes ``offset = rank · n_local``, and reports the sum of the
+ranks' shares (the JAX package's ``psum`` of ``loss_sum``).
 
 The logits are full-f32 products (the JAX package's ``Precision.HIGHEST``):
 tau = 0.05 scales similarity rounding by 20 in logit space. On the card

@@ -13,8 +13,10 @@ Counterpart of ``nafp_tpu/models/nnfp.py`` (reference ``model/fp/nnfp.py``):
   f32 with eps 1e-3, with a scale and offset per position (C,F,T).
   ``layer_norm1d`` normalises over channels; ``batch_norm`` normalises
   by the batch's statistics in training (Flax semantics: biased variance
-  E[x²] − E[x]² in f32, running averages with momentum 0.99) and by the
-  running statistics in eval mode.
+  E[x²] − E[x]² in f32, running averages with momentum 0.99; under a
+  ``torch.distributed`` group of more than one rank, the whole global
+  batch's, as Flax's ``axis_name`` BatchNorm) and by the running
+  statistics in eval mode.
 - DivEnc: q slices of the flattened feature, each Dense(32, elu) ->
   Dense(1), as two batched einsums.
 - Flatten happens in NHWC order, as in the JAX package, so the DivEnc
@@ -38,6 +40,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from nafp_tpu_torch.parallel.mesh import all_reduce_sum, world
 
 # [(freq, time) stride of conv1x3, (freq, time) stride of conv3x1] per layer
 # (reference nnfp.py:194-197).
@@ -149,8 +153,11 @@ class BatchNorm(nn.Module):
     biased fast variance ``max(E[x²] − E[x]², 0)`` (Flax's default; unlike
     ``nn.BatchNorm2d``, whose running variance is unbiased), and running
     averages ``r = 0.99·r + 0.01·batch`` updated in place (buffers, not
-    parameters: no optimiser touches them). Eval mode: the running
-    statistics."""
+    parameters: no optimiser touches them). Under a process group of more
+    than one rank, the batch mean and E[x²] are averaged over the ranks
+    with gradient (each rank holds an equal share of the global batch), so
+    the running averages are the same on every rank. Eval mode: the
+    running statistics."""
 
     def __init__(self, ch: int, eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
@@ -166,8 +173,12 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp(xf.square().mean(dim=(0, 2, 3))
-                              - mean.square(), min=0.0)
+            mean2 = xf.square().mean(dim=(0, 2, 3))
+            _, size = world()
+            if size > 1:
+                mean, mean2 = (all_reduce_sum(torch.stack([mean, mean2]))
+                               / size).unbind(0)
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

@@ -15,7 +15,10 @@ frontend, ``model/fp/melspec/melspectrogram.py:10-141``):
 
 The max is taken over the whole batch, so a segment's features depend on
 the batch it rides in: generation feeds the same static zero-padded batches
-as the JAX package to reproduce its memmaps.
+as the JAX package to reproduce its memmaps. A batch split over devices
+(``melspectrogram_parts``) or over the ranks of a process group
+(``across_ranks``) is normalised by the whole batch's max, as the JAX
+package's ``pmax`` over its mesh.
 
 The numpy constants (DFT basis, mel filterbank) are the JAX package's,
 value for value. Both matmuls run in full f32: TF32 is switched off on the
@@ -25,11 +28,13 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from nafp_tpu_torch.parallel.mesh import all_reduce_
 
 
 # ---------------------------------------------------------------------------
@@ -141,17 +146,8 @@ def _constants(cfg: MelSpecConfig):
                            cfg.f_max))
 
 
-def melspectrogram(x: torch.Tensor, cfg: MelSpecConfig) -> torch.Tensor:
-    """Log-power mel-spectrogram of a waveform batch.
-
-    Args:
-      x: ``(B, T_samples)`` or ``(B, 1, T_samples)`` float32 tensor.
-      cfg: MelSpecConfig.
-
-    Returns:
-      ``(B, n_mels, n_frames, 1)`` float32 log-mel features in [-80, 0],
-      on ``x``'s device.
-    """
+def _log_mel(x: torch.Tensor, cfg: MelSpecConfig) -> torch.Tensor:
+    """(B, T, n_mels) log10 mel power, before the batch's subtract-max."""
     if x.ndim == 3:
         x = x[:, 0, :]
     if x.shape[-1] != cfg.n_samples:
@@ -173,13 +169,58 @@ def melspectrogram(x: torch.Tensor, cfg: MelSpecConfig) -> torch.Tensor:
 
     # Reference post-processing chain (melspectrogram.py:102-112).
     mel = mel + cfg.scale_offset
-    mel = torch.log(torch.clamp(mel, min=cfg.amin)) / math.log(10.0)
-    mel = mel - mel.max()                               # max over the batch
-    mel = torch.clamp(mel, min=-cfg.dynamic_range)
+    return torch.log(torch.clamp(mel, min=cfg.amin)) / math.log(10.0)
+
+
+def _batch_reduce(parts: List[torch.Tensor], op: str,
+                  across_ranks: bool) -> torch.Tensor:
+    """The max (min) of every part's max (min), on the first part's
+    device; then over the ranks of the process group when asked."""
+    red = (lambda t: t.max()) if op == "max" else (lambda t: t.min())
+    out = red(parts[0])
+    for p in parts[1:]:
+        out = (torch.maximum if op == "max" else torch.minimum)(
+            out, red(p).to(out.device))
+    if across_ranks:
+        out = all_reduce_(out.detach().clone(), op)
+    return out
+
+
+def melspectrogram_parts(xs: Sequence[torch.Tensor], cfg: MelSpecConfig,
+                         across_ranks: bool = False) -> List[torch.Tensor]:
+    """Log-mel features of a batch split into parts (one per device).
+
+    The subtract-max and the ``melspec_maxnorm`` minimum are taken over the
+    WHOLE batch: over every part, and with ``across_ranks`` over the ranks
+    of the ``torch.distributed`` group too (the JAX package's ``pmax`` /
+    ``pmin``). They are upstream of every parameter, so the reduction
+    carries no gradient. Each part stays on its own device."""
+    mels = [_log_mel(x, cfg) for x in xs]
+    mx = _batch_reduce(mels, "max", across_ranks)
+    mels = [torch.clamp(m - mx.to(m.device), min=-cfg.dynamic_range)
+            for m in mels]
     if cfg.segment_norm:
-        mn = mel.min() / 2
-        mel = (mel - mn) / torch.abs(mn + 1e-10)
-    return mel.transpose(1, 2).unsqueeze(-1)            # (B, F, T, 1)
+        mn = _batch_reduce(mels, "min", across_ranks) / 2
+        mels = [(m - mn.to(m.device)) / torch.abs(mn.to(m.device) + 1e-10)
+                for m in mels]
+    return [m.transpose(1, 2).unsqueeze(-1) for m in mels]   # (B, F, T, 1)
+
+
+def melspectrogram(x: torch.Tensor, cfg: MelSpecConfig,
+                   across_ranks: bool = False) -> torch.Tensor:
+    """Log-power mel-spectrogram of a waveform batch.
+
+    Args:
+      x: ``(B, T_samples)`` or ``(B, 1, T_samples)`` float32 tensor.
+      cfg: MelSpecConfig.
+      across_ranks: ``x`` is this rank's share of a batch split over a
+        ``torch.distributed`` group; the subtract-max is the whole batch's.
+
+    Returns:
+      ``(B, n_mels, n_frames, 1)`` float32 log-mel features in [-80, 0],
+      on ``x``'s device.
+    """
+    return melspectrogram_parts([x], cfg, across_ranks)[0]
 
 
 def get_melspec_fn(cfg: Dict[str, Any], variant: str = "default"):

@@ -203,10 +203,13 @@ def eval_fingerprints(emb_dir: str,
     eval_summary.json into ``emb_dir``.
 
     ``device``: where the index and the rescoring run (``cuda:0`` by
-    default; raises when no card is present). ``index_cache``: npz path of
-    the int8 store (sq8 / sq8-flat), loaded when present and written after
-    a fresh build. ``max_train``, ``nprobe`` and ``ef_search`` belong to
-    index families of later slices."""
+    default; raises when no card is present). The sharded types split the
+    rows over every local card (one CPU shard for the CPU); the rescoring
+    stays on ``device``. ``index_cache``: npz path of the int8 store (sq8,
+    sq8-flat, ivf-sq8 and the sharded twins), loaded when present and
+    written after a fresh build. ``max_train``: rows the trained indexes
+    learn from; ``nprobe``: lists the IVF indexes probe; ``ef_search``:
+    hnsw's beam."""
     device = resolve_device(device)
     cache_cls, load_kwargs = cacheable_cls(index_type, nprobe)  # fail fast
     seq_lens = np.asarray(list(map(int, str(test_seq_len).split())))

@@ -6,8 +6,9 @@ Counterpart of ``nafp_tpu/search/index.py`` (``FlatIndex``,
 ``get_index``, ``cacheable_cls``), itself the replacement of the
 reference's FAISS backend (``eval/utils/get_index_faiss.py``).
 Fingerprints are L2-normalised, so L2 ranking equals inner-product
-ranking. The sharded indexes are later work and raise
-``NotImplementedError`` here.
+ranking. The sharded indexes (``l2-sharded``, ``sq8-sharded``,
+``ivf-sq8-sharded``) are in ``search/sharded.py``; the factories here
+name them.
 """
 from __future__ import annotations
 
@@ -20,21 +21,6 @@ from nafp_tpu_torch.device import (DeviceLike, chunked_device_put,
                                    resolve_device)
 from nafp_tpu_torch.search.topk import (NEG, topk_ip, topk_ip_masked,
                                         topk_ip_sq8, topk_low_index)
-
-# Index types of the JAX package still to port (ROADMAP.md).
-_LATER = {
-    "l2-sharded": "sharded search (Queue 1, item 11)",
-    "sq8-sharded": "sharded search (Queue 1, item 11)",
-    "ivf-sq8-sharded": "sharded search (Queue 1, item 11)",
-}
-
-
-def _not_ported(index_type: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"index type {index_type!r} is not ported to nafp_tpu_torch yet: "
-        f"{_LATER[index_type]} in ROADMAP.md, a later slice. Ported: l2, "
-        "ip, ivf, sq8, sq8-flat, ivfpq, ivfpq-rr, ivf-sq8, hnsw")
-
 
 # ---------------------------------------------------------------------------
 # Exact flat index
@@ -935,17 +921,21 @@ def _device_permute_rows(src: torch.Tensor, order: np.ndarray,
 # ---------------------------------------------------------------------------
 def cacheable_cls(index_type: str, nprobe: int = 40):
     """(cls, load_kwargs) for index types whose built store persists to /
-    loads from an npz (the int8 family); (None, None) for the other ported
-    types (IVF-PQ and hnsw included, as in the JAX package). Types still
-    to port raise NotImplementedError."""
+    loads from an npz (the int8 family, the sharded twins included);
+    (None, None) for the other types (IVF-PQ, hnsw and l2-sharded
+    included, as in the JAX package)."""
     t = index_type.lower()
     if t == "ivf-sq8":
         return IVFSQ8Index, {"nprobe": nprobe}
     if t in ("sq8", "sq8-flat"):
         return SQ8FlatIndex, {}
-    if t in _LATER:
-        raise _not_ported(t)
-    if t in ("l2", "ip", "ivf", "ivfpq", "ivfpq-rr", "hnsw"):
+    if t == "sq8-sharded":
+        from nafp_tpu_torch.search.sharded import ShardedSQ8FlatIndex
+        return ShardedSQ8FlatIndex, {}
+    if t == "ivf-sq8-sharded":
+        from nafp_tpu_torch.search.sharded import ShardedIVFSQ8Index
+        return ShardedIVFSQ8Index, {"nprobe": nprobe}
+    if t in ("l2", "ip", "ivf", "ivfpq", "ivfpq-rr", "hnsw", "l2-sharded"):
         return None, None
     raise ValueError(index_type)
 
@@ -962,8 +952,9 @@ def get_index(index_type: str, train_data: np.ndarray,
     rows in coarse lists (nlist ~ sqrt(N), trained here); 'hnsw' the native
     C++ graph on the host (M 16, efConstruction 200, ``ef_search`` the
     query-time beam), like the reference's CPU-only
-    ``faiss.IndexHNSWFlat``. The sharded types raise NotImplementedError
-    naming their place in ROADMAP.md."""
+    ``faiss.IndexHNSWFlat``. 'l2-sharded', 'sq8-sharded' and
+    'ivf-sq8-sharded' split the rows over every local card (one CPU shard
+    for a CPU ``device``; ``search/sharded.py``)."""
     t = index_type.lower()
     d = train_data.shape[1]
     if t in ("l2", "ip", "ivf"):
@@ -979,17 +970,26 @@ def get_index(index_type: str, train_data: np.ndarray,
         return idx
     if t in ("sq8", "sq8-flat"):
         return SQ8FlatIndex(d=d, device=device)
+    # ivf-sq8's k-means budget scales with the automatic nlist (256 rows a
+    # list); an explicitly smaller cap is honoured
+    sq8_cap = None if max_train >= int(1e7) else max_train
     if t == "ivf-sq8":
-        # the k-means budget scales with the automatic nlist (256 rows a
-        # list); an explicitly smaller cap is honoured
         idx = IVFSQ8Index(d=d, nprobe=nprobe, device=device)
-        idx.train(train_data,
-                  max_train=None if max_train >= int(1e7) else max_train)
+        idx.train(train_data, max_train=sq8_cap)
         return idx
+    if t == "sq8-sharded":
+        from nafp_tpu_torch.search.sharded import ShardedSQ8FlatIndex
+        return ShardedSQ8FlatIndex(d=d, device=device)
+    if t == "ivf-sq8-sharded":
+        from nafp_tpu_torch.search.sharded import ShardedIVFSQ8Index
+        idx = ShardedIVFSQ8Index(d=d, nprobe=nprobe, device=device)
+        idx.train(train_data, max_train=sq8_cap)
+        return idx
+    if t == "l2-sharded":
+        from nafp_tpu_torch.search.sharded import ShardedFlatIndex
+        return ShardedFlatIndex(train_data, device=device)
     if t == "hnsw":
         from nafp_tpu_torch.native.hnsw import HNSWIndex
         return HNSWIndex(d=d, m=16, ef_construction=200,
                          ef_search=ef_search)
-    if t in _LATER:
-        raise _not_ported(t)
     raise ValueError(index_type)

@@ -17,6 +17,9 @@ Counterpart of ``nafp_tpu/train/experiment.py`` (reference
   - scalars to ``LOG_ROOT_DIR/fit/NAME/<time>/metrics.jsonl`` always, and
     to TensorBoard (scalars and similarity-matrix images) when
     ``TRAIN.TENSORBOARD`` is on and ``torch.utils.tensorboard`` imports.
+
+In a run of several processes only the lead (rank 0, ``lead=True``)
+writes: the other ranks' helpers restore checkpoints and write nothing.
 """
 from __future__ import annotations
 
@@ -36,10 +39,11 @@ from nafp_tpu_torch.models.convert import (flax_to_torch, load_params_npz,
 
 class ExperimentHelper:
     def __init__(self, checkpoint_name: str, cfg: Dict[str, Any],
-                 max_to_keep: int = 3):
+                 max_to_keep: int = 3, lead: bool = True):
         self.checkpoint_name = checkpoint_name
         self.cfg = cfg
         self.max_to_keep = max_to_keep
+        self.lead = lead
         log_root = cfg["DIR"]["LOG_ROOT_DIR"]
         self.ckpt_dir = os.path.abspath(
             os.path.join(log_root, "checkpoint", checkpoint_name))
@@ -50,9 +54,12 @@ class ExperimentHelper:
         self.log_dir = os.path.join(
             log_root, "fit", checkpoint_name,
             datetime.datetime.now().strftime("%Y%m%d-%H%M%S-%f"))
+        self._jsonl = self._tb = None
+        self.epoch = 1  # 1-based like the reference (:58)
+        if not lead:
+            return
         os.makedirs(self.log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(self.log_dir, "metrics.jsonl"), "a")
-        self._tb = None
         if cfg["TRAIN"].get("TENSORBOARD", True):
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -61,7 +68,6 @@ class ExperimentHelper:
                       "metrics go to metrics.jsonl only")
             else:
                 self._tb = SummaryWriter(self.log_dir)
-        self.epoch = 1  # 1-based like the reference (:58)
 
     # ------------------------------------------------------------------
     def _meta(self, epoch: int) -> Optional[Dict[str, Any]]:
@@ -104,7 +110,9 @@ class ExperimentHelper:
     def save(self, epoch: int, model: torch.nn.Module,
              optimizer: torch.optim.Optimizer, step: int) -> None:
         """Write checkpoint ``epoch`` (replacing one of that index), then
-        apply the retention policy."""
+        apply the retention policy. The lead only."""
+        if not self.lead:
+            return
         final = os.path.join(self.ckpt_dir, str(epoch))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -138,6 +146,8 @@ class ExperimentHelper:
         return self._tb is not None
 
     def log_scalar(self, tag: str, value: float, step: int) -> None:
+        if self._jsonl is None:
+            return
         self._jsonl.write(json.dumps(
             {"tag": tag, "value": float(value), "step": int(step)}) + "\n")
         self._jsonl.flush()
@@ -170,6 +180,7 @@ class ExperimentHelper:
             self.log_scalar(f"mini_search/top1_{key_str}_scope{s}", acc, step)
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

@@ -1,4 +1,4 @@
-"""Training workload: the epoch loop on one device.
+"""Training workload: the epoch loop, on one device or one per process.
 
 Counterpart of ``nafp_tpu/train/trainer.py`` (reference
 ``model/trainer.py:19-230``). One train step is: time-domain augmentation
@@ -18,15 +18,30 @@ steps for the progress line).
 Random draws: the train step draws from a generator on the run's device
 seeded by (TRAIN.SEED, step); validation step i of epoch ep by (TRAIN.SEED,
 1_000_000 + ep·10_000 + i); the mini-search augmentation of batch i by i.
-These are the JAX package's keys: the same law, not the same draws. The
+These are the JAX package's keys: the same law, not the same draws. Rank
+r > 0 of a process group mixes r into each seed (the JAX package folds in
+the device's axis index); rank 0 draws what a single process draws. The
 initial weights come from seed 42, as the JAX package's ``init_params``.
+
+Several processes (``torch.distributed``, one per card; ``nccl`` on CUDA,
+``gloo`` on the CPU; joined by ``parallel.mesh.maybe_init_distributed``
+from ``NAFP_*`` or ``DEVICE.MULTIHOST``): the ``BSZ`` keys are the global
+batch and each rank loads its 1/world share from its round-robin share of
+the songs. The log-mel subtract-max is the global batch's, NT-Xent
+gathers every rank's embeddings (its backward sums over the ranks),
+BatchNorm averages its statistics over the ranks, and the gradients are
+summed over the ranks (each rank's loss is its share of the global loss,
+so a sum, not DDP's average, is the global gradient): every rank ends a
+step with the same parameters. The step counts per epoch are the minimum
+over ranks. Only rank 0 writes checkpoints and metrics; the others wait
+at a barrier behind each save.
 
 ``DEVICE.DEVICE_CORPUS``: the training songs are resident on the card
 and each batch is gathered there (``data/device_corpus.py``); validation
 keeps the host loader, as in the JAX package.
 
-Not ported (each raises): ``LOSS_MODE: Online-Triplet`` (ROADMAP.md Queue 1
-item 12), more than one process (item 11).
+Not ported (raises): ``LOSS_MODE: Online-Triplet`` (ROADMAP.md Queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -48,6 +63,9 @@ from nafp_tpu_torch.ops.melspec import get_melspec_fn
 from nafp_tpu_torch.ops.specaug import get_specaug_fn
 from nafp_tpu_torch.ops.tdaug import augment_replicas
 from nafp_tpu_torch.optim.schedules import Schedule, build_optimizer
+from nafp_tpu_torch.parallel.mesh import (all_gather, all_reduce_,
+                                          maybe_init_distributed, rank_device,
+                                          world)
 from nafp_tpu_torch.search.minisearch import mini_search_eval
 from nafp_tpu_torch.train.experiment import ExperimentHelper
 from nafp_tpu_torch.utils.profiling import StepTimer, trace
@@ -65,17 +83,51 @@ def check_supported(cfg: Dict[str, Any]) -> None:
         raise NotImplementedError(
             f"LOSS.LOSS_MODE {cfg['LOSS']['LOSS_MODE']!r}: only NTxent is "
             "ported (the triplet branch is ROADMAP.md Queue 1 item 12)")
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "training in more than one process is not ported yet "
-            "(ROADMAP.md Queue 1 item 11)")
 
 
-def step_seed(seed: int, step: int) -> int:
-    """One 64-bit generator seed from (seed, step)."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(
+BSZ_SPLIT = ("TR_BATCH_SZ", "TR_N_ANCHOR", "VAL_BATCH_SZ", "VAL_N_ANCHOR")
+
+
+def per_rank_batch(cfg: Dict[str, Any], size: int) -> Dict[str, Any]:
+    """``cfg`` with the global ``BSZ`` keys divided by the world size (a
+    new dict; ``cfg`` itself for one process). A key the world size does
+    not divide raises."""
+    if size <= 1:
+        return cfg
+    b = dict(cfg["BSZ"])
+    for k in BSZ_SPLIT:
+        if int(b[k]) % size:
+            raise ValueError(f"BSZ.{k}={b[k]} not divisible by {size} "
+                             "processes")
+        b[k] = int(b[k]) // size
+    return {**cfg, "BSZ": b}
+
+
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """One 64-bit generator seed from (seed, step), and the rank when it
+    is not 0."""
+    entropy = [seed, step] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0])
+
+
+def min_over_ranks(n: int, device: torch.device) -> int:
+    """The smallest ``n`` of the ranks (``n`` for one process): every rank
+    must enter the same number of collectives, or a straggler deadlocks."""
+    if world()[1] <= 1:
+        return n
+    t = torch.tensor([n], dtype=torch.int64, device=device)
+    return int(all_reduce_(t, "min").item())
+
+
+def all_reduce_grads(params) -> None:
+    """Sum every gradient over the ranks, in one flat buffer."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if world()[1] <= 1 or not grads:
+        return
+    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
 
 
 def build_fp(cfg: Dict[str, Any], seed: int = INIT_SEED):
@@ -91,7 +143,9 @@ def _make_loss_fn(cfg, melspec_fn, specaug_fn, model: FingerPrinter,
     tensors. ``aug_keys`` names the augmentation sources the loader really
     has (default: the batch's keys). ``draws`` replaces the generator's
     draws: ``{"td": {"snr": (n, 1), "amp": (n, 1)}, "spec": [one dict per
-    SpecAugment layer]}``. The model's mode (train/eval) is the caller's."""
+    SpecAugment layer]}``. The model's mode (train/eval) is the caller's.
+    Under a process group of more than one rank the batch is this rank's
+    share, and the loss is its share of the global loss."""
     tau = float(cfg["LOSS"]["TAU"])
     td = cfg["TD_AUG"]
     pre = "TR" if train else "VAL"
@@ -112,19 +166,26 @@ def _make_loss_fn(cfg, melspec_fn, specaug_fn, model: FingerPrinter,
                               speech=batch.get("speech"),
                               use_speech=use_speech and "speech" in have,
                               **draws.get("td", {}))
-        feat = melspec_fn(torch.cat([xa, xp], dim=0))
+        rank, size = world()
+        feat = melspec_fn(torch.cat([xa, xp], dim=0), across_ranks=size > 1)
         if train:
             feat = specaug_fn(feat, gen, draws=draws.get("spec"))
         emb = model(feat)
         n = xa.shape[0]
-        return ntxent_loss(emb[:n], emb[n:], tau=tau)
+        ea, ep = emb[:n], emb[n:]
+        # one process: all_gather is the identity and the offset 0
+        return ntxent_loss(ea, ep, tau=tau,
+                           gathered=(all_gather(ea), all_gather(ep)),
+                           offset=rank * n)
 
     return loss_fn
 
 
 class TrainStep:
     """One optimizer step per call on a device batch; ``step`` is the
-    optimizer's count (the number of updates made)."""
+    optimizer's count (the number of updates made). Under a process group
+    the gradients are summed over the ranks before the update, and the
+    returned loss is the global loss (the sum of the ranks' shares)."""
 
     def __init__(self, cfg: Dict[str, Any], model: FingerPrinter,
                  optimizer: torch.optim.Optimizer, schedule: Schedule,
@@ -138,15 +199,20 @@ class TrainStep:
     def __call__(self, batch: Dict[str, torch.Tensor],
                  draws: Optional[Dict[str, Any]] = None):
         self.model.train()
-        self.gen.manual_seed(step_seed(self.seed, self.step))
+        rank, _ = world()
+        self.gen.manual_seed(step_seed(self.seed, self.step, rank))
         for g in self.optimizer.param_groups:
             g["lr"] = self.schedule(self.step)
         loss, sim = self.loss_fn(batch, self.gen, draws)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads(self.model.parameters())
         self.optimizer.step()
         self.step += 1
-        return loss.detach(), sim.detach()
+        loss = loss.detach()
+        if world()[1] > 1:
+            loss = all_reduce_(loss.clone())
+        return loss, sim.detach()
 
 
 class BatchUploader:
@@ -240,25 +306,36 @@ def mini_search_validation(ds: SegmentLoader, model: FingerPrinter,
 def trainer(cfg: Dict[str, Any], checkpoint_name: str,
             device: DeviceLike = None) -> None:
     """The epoch loop (reference trainer.py:111-230). ``device`` defaults
-    to ``cuda:0`` (raises when no card is present)."""
+    to ``cuda:0`` (raises when no card is present); in a process group of
+    several ranks on CUDA, rank r runs on ``cuda:{LOCAL_RANK}``."""
     device = resolve_device(device)
     check_supported(cfg)
+    maybe_init_distributed(cfg, device)
+    device = rank_device(device)
+    rank, size = world()
+    lead = rank == 0
+    cfg = per_rank_batch(cfg, size)
     dataset = Dataset(cfg)
     melspec_fn, specaug_fn, model, _ = build_fp(cfg)
     model.to(device)
-    print(f"[trainer] on {device}: {sum(p.numel() for p in model.parameters())}"
+    print(f"[trainer] on {device}"
+          + (f" (rank {rank} of {size})" if size > 1 else "")
+          + f": {sum(p.numel() for p in model.parameters())}"
           f" parameters, MODEL.BN {model.norm}, {model.dtype}")
 
     train_ds = maybe_device_loader(
         dataset.get_train_ds(cfg["DATA_SEL"]["REDUCE_ITEMS_P"]), cfg,
         label="train corpus", device=device)
-    steps_per_epoch = len(train_ds)
+    steps_per_epoch = min_over_ranks(len(train_ds), device)
     ep_max = int(cfg["TRAIN"]["MAX_EPOCH"])
     optimizer, schedule = build_optimizer(cfg, model,
                                           ep_max * steps_per_epoch)
-    helper = ExperimentHelper(checkpoint_name, cfg)
+    helper = ExperimentHelper(checkpoint_name, cfg, lead=lead)
+    if size > 1:
+        dist.barrier()    # no rank reads a checkpoint rank 0 still writes
     step = helper.restore_or_init(model, optimizer)
     val_ds = dataset.get_val_ds(max_song=250)
+    val_steps = min_over_ranks(len(val_ds), device)
 
     train_step = TrainStep(
         cfg, model, optimizer, schedule,
@@ -280,23 +357,29 @@ def trainer(cfg: Dict[str, Any], checkpoint_name: str,
     upload = BatchUploader(device)
     val_gen = torch.Generator(device=device)
     seed = train_step.seed
-    save_img = bool(cfg["TRAIN"].get("SAVE_IMG")) and helper.has_images
+    # the similarity images are this rank's rows only: one process only,
+    # as in the JAX package
+    save_img = (bool(cfg["TRAIN"].get("SAVE_IMG")) and helper.has_images
+                and size == 1)
     profile_dir = cfg["TRAIN"].get("PROFILE_DIR")
     ckpt_every = int(cfg["TRAIN"].get("CHECKPOINT_INTERVAL", 1) or 1)
 
     for ep in range(helper.epoch, ep_max + 1):
-        print(f"EPOCH: {ep}/{ep_max}")
+        if lead:
+            print(f"EPOCH: {ep}/{ep_max}")
         t_ep = time.perf_counter()
         train_ds.set_epoch(ep)
         losses, sim = [], None
         timer = StepTimer()
         with (trace(profile_dir) if profile_dir and ep == helper.epoch
-              else contextlib.nullcontext()):
+              and lead else contextlib.nullcontext()):
             for i, batch in enumerate(prefetch(train_ds)):
+                if i >= steps_per_epoch:
+                    break
                 loss, sim = train_step(upload(batch))
                 losses.append(loss)
                 timer.tick()
-                if i % 50 == 0:
+                if i % 50 == 0 and lead:
                     print(f"  step {i}/{steps_per_epoch} tr_loss "
                           f"{float(loss):.4f} step {timer.step_ms:.0f} ms",
                           end="\r")
@@ -305,7 +388,7 @@ def trainer(cfg: Dict[str, Any], checkpoint_name: str,
         helper.log_scalar("loss/train", tr_loss, ep)
         if timer.ema_dt:
             helper.log_scalar("throughput/segments_per_sec",
-                              timer.items_per_sec(train_ds.bsz), ep)
+                              timer.items_per_sec(train_ds.bsz * size), ep)
             helper.log_scalar("throughput/step_ms", timer.step_ms, ep)
         if save_img and sim is not None:
             helper.log_sim_images("tr_sim_mtx", sim.cpu().numpy(), ep)
@@ -315,22 +398,32 @@ def trainer(cfg: Dict[str, Any], checkpoint_name: str,
         model.eval()
         with torch.no_grad():
             for i, batch in enumerate(prefetch(val_ds)):
-                val_gen.manual_seed(step_seed(seed,
-                                              1_000_000 + ep * 10_000 + i))
+                if i >= val_steps:
+                    break
+                val_gen.manual_seed(step_seed(
+                    seed, 1_000_000 + ep * 10_000 + i, rank))
                 loss, sim = val_loss_fn(upload(batch), val_gen)
-                val_losses.append(loss)
+                val_losses.append(all_reduce_(loss) if size > 1 else loss)
         val_loss = (float(torch.stack(val_losses).mean()) if val_losses
                     else float("nan"))
         helper.log_scalar("loss/val", val_loss, ep)
         helper.log_scalar("time/epoch_sec", time.perf_counter() - t_ep, ep)
         if save_img and val_losses:
             helper.log_sim_images("val_sim_mtx", sim.cpu().numpy(), ep)
-        print(f"tr_loss:{tr_loss:.4f}, val_loss:{val_loss:.4f}")
+        if lead:
+            print(f"tr_loss:{tr_loss:.4f}, val_loss:{val_loss:.4f}")
 
         if ep % ckpt_every == 0 or ep == ep_max:
             helper.save(ep, model, optimizer, train_step.step)
+            if size > 1:
+                dist.barrier()
 
-        if cfg["TRAIN"].get("MINI_TEST_IN_TRAIN"):
+        if cfg["TRAIN"].get("MINI_TEST_IN_TRAIN") and size > 1:
+            if lead:
+                print("[trainer] MINI_TEST_IN_TRAIN skipped with several "
+                      "processes, as in the JAX package (run evaluate on a "
+                      "checkpoint instead)")
+        elif cfg["TRAIN"].get("MINI_TEST_IN_TRAIN"):
             accs_by_scope, scopes, key_strs = mini_search_validation(
                 val_ds, model, melspec_fn, device, aug_fn=mini_aug)
             for k in key_strs:

@@ -158,7 +158,9 @@ def test_factory_hnsw_and_cache_registry(rng):
     assert P.cacheable_cls("hnsw") == (None, None)
     assert P.cacheable_cls("ivf-sq8", nprobe=9) == (P.IVFSQ8Index,
                                                    {"nprobe": 9})
-    assert set(P._LATER) == {"l2-sharded", "sq8-sharded", "ivf-sq8-sharded"}
+    from nafp_tpu_torch.search.sharded import ShardedIVFSQ8Index
+    assert P.cacheable_cls("ivf-sq8-sharded", nprobe=9) == (
+        ShardedIVFSQ8Index, {"nprobe": 9})
 
 
 def test_cli_ef_search_reaches_hnsw(rng, tmp_path, monkeypatch):

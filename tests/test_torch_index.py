@@ -114,22 +114,23 @@ def test_sq8_store_loads_in_both_packages(rng, tmp_path, writer):
 @pytest.mark.parametrize("t", ["ivf-sq8", "hnsw", "sq8-sharded",
                                "l2-sharded"])
 def test_later_slices_raise(rng, t):
-    """The sharded types raise, naming their place in ROADMAP.md; ivf-sq8
-    and hnsw were ported since, and the factory and cache registry build
-    them instead."""
+    """No index type of the JAX package raises any more: ivf-sq8 and hnsw
+    were ported first, the sharded types since (search/sharded.py), and
+    the factory and cache registry build them (a CPU device gives one CPU
+    shard)."""
+    from nafp_tpu_torch.search import sharded as S
     db = _unit(rng, 50)
-    if t in ("ivf-sq8", "hnsw"):
-        idx = P.get_index(t, db, device=CPU)
-        assert type(idx).__name__ == {"ivf-sq8": "IVFSQ8Index",
-                                      "hnsw": "HNSWIndex"}[t]
-        assert t not in P._LATER
-        assert P.cacheable_cls(t)[0] is (P.IVFSQ8Index if t == "ivf-sq8"
-                                         else None)
-        return
-    with pytest.raises(NotImplementedError, match="slice"):
-        P.get_index(t, db, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.cacheable_cls(t)
+    idx = P.get_index(t, db, device=CPU)
+    assert type(idx).__name__ == {"ivf-sq8": "IVFSQ8Index",
+                                  "hnsw": "HNSWIndex",
+                                  "sq8-sharded": "ShardedSQ8FlatIndex",
+                                  "l2-sharded": "ShardedFlatIndex"}[t]
+    assert not hasattr(P, "_LATER")
+    assert P.cacheable_cls(t)[0] is {"ivf-sq8": P.IVFSQ8Index, "hnsw": None,
+                                     "sq8-sharded": S.ShardedSQ8FlatIndex,
+                                     "l2-sharded": None}[t]
+    if "sharded" in t:
+        assert idx.devices == [CPU]
 
 
 def test_factory_and_cache_registry(rng):

@@ -393,8 +393,20 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 
 
 def test_more_than_one_process_raises(monkeypatch):
+    """Training in several processes is ported: under a 2-rank group the
+    NT-Xent config passes ``check_supported``, and what raises is a global
+    ``BSZ`` key the world size does not divide (each rank loads 1/world of
+    the batch, the JAX package's rule)."""
     import nafp_tpu_torch.train.trainer as TR
     monkeypatch.setattr(TR.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(TR.dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TR.check_supported(_cfg())
+    monkeypatch.setattr(TR.dist, "get_rank", lambda: 1)
+    cfg = _cfg()
+    TR.check_supported(cfg)
+    assert TR.world() == (1, 2)
+    split = TR.per_rank_batch(cfg, 2)
+    assert [split["BSZ"][k] for k in TR.BSZ_SPLIT] == [4, 2, 4, 2]
+    assert cfg["BSZ"]["TR_BATCH_SZ"] == 8          # the caller's dict kept
+    cfg["BSZ"]["TR_N_ANCHOR"] = 3
+    with pytest.raises(ValueError, match="TR_N_ANCHOR=3 not divisible by 2"):
+        TR.per_rank_batch(cfg, 2)
