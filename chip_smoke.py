@@ -90,7 +90,24 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    store in SQ8FlatIndex; ``generate`` with ``MESH_DATA_PARALLEL -1``
    equal to phase 3's memmaps bit for bit; ``cli train -c 640_lamb`` for a
    quarter epoch under a one-rank NCCL group started through ``NAFP_*``,
-   its losses within a tolerance fixed from two plain runs.
+   its losses within a tolerance fixed from two plain runs;
+10. the Online-Triplet path, ``MODEL.ACT_STORE``, IVF-PQ's int8 decode and
+   ``dataset2wav``: ``online_triplet_loss`` in its four modes, with and
+   without ``use_anc_as_pos`` (24 anchors x 4 replicas, d 128), on the card
+   against the CPU in f32 (loss, num_active, distances, both gradients);
+   one full-width ``now_playing`` step ('hardest', 2 x 4, fixed draws),
+   card against CPU in f32; ``cli train`` of ``now_playing`` with
+   ``MINING_MODE hardest`` for one epoch on phase 7's corpus (losses finite,
+   step ms, segments/s, peak memory), then ``generate`` + ``evaluate -i
+   l2`` (B1) of its checkpoint; ``generate --act_store int8`` and ``fp8``
+   over phase 3's corpus against the bf16 memmaps (cosine min and mean,
+   ``evaluate -i l2``'s top-1 hits against bf16's) and
+   ``extras/bench_quant.py`` through its ``main``; phase 3's IVF-PQ store
+   with ``decode_int8``: a decoded chunk equal to the plain decode and the
+   CPU's bit for bit, the top-1 of noisy copies of DB rows against the
+   exact scan within 0.01 of the f32 decode's, with as many B3 launches;
+   ``dataset2wav --split val`` on phase 7's corpus, its WAVs read back
+   through ``data/audio_io.py``.
 
 Every phase raises on failure; nothing is caught. The last lines are the
 ``{"kernels": [...]}`` record, the card's name and power limit as
@@ -109,6 +126,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "smoke_run")
+# the port's copy of the synthetic-corpus writer (numpy and wave only)
+SYNTH = os.path.join(ROOT, "nafp_tpu_torch", "extras", "make_synth_dataset.py")
 NAME, INDEX = "smoke", 1
 SEED = 0
 N_DB_ROWS = 619_500          # dummy_db + db of the 10k-song protocol
@@ -212,6 +231,25 @@ NCCL_TRAIN_REDUCE_P = 25
 # plain runs in the same call (cuDNN's backward is not deterministic), plus
 # a relative floor for a spread of 0
 NCCL_LOSS_SPREAD, NCCL_LOSS_FLOOR = 4.0, 1e-5
+# Phase 10, the Online-Triplet path: the loss at the now_playing layout (24
+# anchors x 4 replicas, d 128), card (TF32 off) vs CPU in f32: sums in other
+# orders (tests/test_torch_triplet.py's tolerances); the identity block of
+# use_anc_as_pos is sqrt(max(2(1 - a·a), 0) + EPS) of each device's own f32
+# a·a, between sqrt(EPS) and TRIPLET_IDENTITY_MAX, and read by nothing
+TRIPLET_A, TRIPLET_P, TRIPLET_D = 24, 4, 128
+TRIPLET_LOSS_RTOL, TRIPLET_DIST_ATOL, TRIPLET_GRAD_ATOL = 1e-5, 1e-6, 1e-5
+TRIPLET_IDENTITY_MAX = (2 * 16 * 2.0 ** -24 + 1e-9) ** 0.5
+TRIPLET_NAME = "smoke_triplet"
+# ACT_STORE's fingerprints against bf16's over phase 3's corpus (the JAX
+# package's on a TPU v5e: int8 cosine min .9907 / mean .9946, fp8 .9799 /
+# .9887). The top-1 hits of its evaluate -i l2 against bf16's are printed,
+# not gated: phase 3's weights are random, its hits near chance, and a
+# perturbation of 1 % moves which of them hit (0.78 on the CPU rehearsal)
+ACT_COS_MIN = {"int8": 0.98, "fp8": 0.97}
+ACT_COS_MEAN = {"int8": 0.99, "fp8": 0.98}
+# IVF-PQ's int8 decode: noisy-copy queries searched, and its top-1
+# agreement with the exact scan within this of the f32 decode's
+PQ_INT8_QUERIES, PQ_INT8_AGREE_SLACK = 2048, 0.01
 
 
 
@@ -945,7 +983,7 @@ def phase_main_path(dev):
     data = os.path.join(WORK, "data")
     t0 = time.perf_counter()
     subprocess.run([sys.executable,
-                    os.path.join(ROOT, "extras", "make_synth_dataset.py"),
+                    SYNTH,
                     data, "--n_train", "0", "--n_query", str(N_QUERY),
                     "--n_dummy", str(N_DUMMY), "--sec", str(SONG_SEC)],
                    check=True, timeout=600, stdout=subprocess.DEVNULL)
@@ -1656,8 +1694,9 @@ def train_corpus_cfg(data, preset="default", **model):
     return cfg
 
 
-def host_draws(cfg, n_rep, gen):
-    """One step's augmentation draws (bg mix, SpecAugment holes and gates)
+def host_draws(cfg, n_rep, gen, n_all=None):
+    """One step's augmentation draws (bg mix of ``n_rep`` replicas,
+    SpecAugment holes and gates of ``n_all`` segments, default 2·n_rep)
     from a CPU generator, so the card and the CPU compute on the same
     values."""
     import torch
@@ -1668,7 +1707,7 @@ def host_draws(cfg, n_rep, gen):
     spec = [dict(ranges=hole_ranges(
                      gen, kind, 1, int(sa["SPECAUG_N_HOLES"]) if kind ==
                      "cutout" else 1, 256, 32),
-                 act=torch.rand((2 * n_rep, 1, 1, 1), generator=gen)
+                 act=torch.rand((n_all or 2 * n_rep, 1, 1, 1), generator=gen)
                  < float(sa["SPECAUG_PROBS"]))
             for kind in sa["SPECAUG_CHAIN"]]
     return {"td": dict(snr=snr, amp=amp), "spec": spec}
@@ -1811,20 +1850,21 @@ def step_layers(cfg, ds, dev, iters=20):
                 optimizer_ms=time_ms(opt.step, iters))
 
 
-def serve_checkpoint(cli, T, cfg_path, out_root, index, dev):
-    """generate + evaluate -i l2 (kernel B1) of checkpoint ``index`` over a
-    DB padded with random unit rows to TRAIN_DB_ROWS: top-1 exact % at 1,
-    2 and 3 s, and the held-out song-level NT-Xent of generate's
-    fingerprints: batches of one random segment per song, its db row the
-    anchor and its query row the positive (tau 0.05, SERVE_LOSS_BATCHES
-    seeded batches)."""
+def serve_checkpoint(cli, T, cfg_path, out_root, index, dev,
+                     name=TRAIN_NAME):
+    """generate + evaluate -i l2 (kernel B1) of checkpoint ``index`` of run
+    ``name`` over a DB padded with random unit rows to TRAIN_DB_ROWS:
+    top-1 exact % at 1, 2 and 3 s, the held-out song-level NT-Xent of
+    generate's fingerprints (batches of one random segment per song, its
+    db row the anchor and its query row the positive; tau 0.05,
+    SERVE_LOSS_BATCHES seeded batches), and the evaluate's launches."""
     import numpy as np
     import torch
     from nafp_tpu_torch.data.audio_io import create_memmap, load_memmap
     from nafp_tpu_torch.losses.ntxent import ntxent_loss
-    cli(["generate", TRAIN_NAME, str(index), "-c", cfg_path, "--yes"],
+    cli(["generate", name, str(index), "-c", cfg_path, "--yes"],
         standalone_mode=False)
-    emb_dir = os.path.join(WORK, out_root, TRAIN_NAME, str(index))
+    emb_dir = os.path.join(WORK, out_root, name, str(index))
     dummy, _ = load_memmap(emb_dir, "dummy_db", display=False)
     db = torch.from_numpy(np.array(load_memmap(emb_dir, "db",
                                                display=False)[0]))
@@ -1842,10 +1882,11 @@ def serve_checkpoint(cli, T, cfg_path, out_root, index, dev):
     arr.flush()
     del arr
     T.reset_launches()
-    cli(["evaluate", TRAIN_NAME, str(index), "-c", cfg_path, "-i", "l2", "-t",
+    cli(["evaluate", name, str(index), "-c", cfg_path, "-i", "l2", "-t",
          "all", "--test_seq_len", "1 3 5", "--emb_dummy_dir", dummy_dir],
         standalone_mode=False)
-    if T.LAUNCHES["topk_ip"] <= 0:
+    launches = dict(T.LAUNCHES)
+    if launches["topk_ip"] <= 0:
         raise AssertionError("evaluate -i l2 did not launch B1")
     raw = np.load(os.path.join(emb_dir, "raw_score.npy"))
     rng = np.random.default_rng(SEED)
@@ -1856,7 +1897,7 @@ def serve_checkpoint(cli, T, cfg_path, out_root, index, dev):
         losses.append(ntxent_loss(db[sel], query[sel])[0].item())
     return dict(top1=[round(100.0 * float(raw[:, i].mean()), 3)
                       for i in range(3)],
-                song_loss=float(np.mean(losses)))
+                song_loss=float(np.mean(losses)), launches=launches)
 
 
 def phase_training(dev):
@@ -1877,7 +1918,7 @@ def phase_training(dev):
     data = os.path.join(WORK, "train_data")
     t0 = time.perf_counter()
     subprocess.run([sys.executable,
-                    os.path.join(ROOT, "extras", "make_synth_dataset.py"),
+                    SYNTH,
                     data, "--n_train", str(TRAIN_SONGS), "--n_query",
                     str(TRAIN_QUERY), "--n_dummy", str(TRAIN_DUMMY), "--sec",
                     str(SONG_SEC)],
@@ -2598,6 +2639,271 @@ def phase_sharded(dev, main_path, ivf_sq8):
     return out
 
 
+def triplet_card_vs_cpu(dev):
+    """online_triplet_loss in its four modes, with and without
+    use_anc_as_pos, on the card against the port on the CPU (f32): loss,
+    num_active, distances and both inputs' gradients."""
+    import numpy as np
+    import torch
+    from nafp_tpu_torch.losses.triplet import MODES, online_triplet_loss
+    rng = np.random.default_rng(SEED + 11)
+
+    def unit(n):
+        x = rng.standard_normal((n, TRIPLET_D)).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+    ea, ep = unit(TRIPLET_A), unit(TRIPLET_A * TRIPLET_P)
+    n_pos = TRIPLET_A * TRIPLET_P
+
+    def run(d, mode, uap):
+        a = torch.from_numpy(ea).to(d).requires_grad_()
+        p = torch.from_numpy(ep).to(d).requires_grad_()
+        loss, dists, n = online_triplet_loss(a, p, TRIPLET_A, TRIPLET_P,
+                                             0.5, mode, uap)
+        loss.backward()
+        return (loss.item(), dists.detach().cpu().numpy(), n.item(),
+                a.grad.cpu().numpy(), p.grad.cpu().numpy())
+    worst = {"loss": 0.0, "dists": 0.0, "grad": 0.0}
+    for mode in MODES:
+        for uap in (True, False):
+            c, g = run(torch.device("cpu"), mode, uap), run(dev, mode, uap)
+            ident = np.zeros(c[1].shape, bool)
+            if uap:
+                ident[:, n_pos:] = np.eye(TRIPLET_A, dtype=bool)
+                if not (g[1][ident].max() <= TRIPLET_IDENTITY_MAX
+                        and c[1][ident].max() <= TRIPLET_IDENTITY_MAX):
+                    raise AssertionError(f"triplet {mode}: identity block "
+                                         "off its bound")
+            errs = {"loss": abs(g[0] / c[0] - 1),
+                    "dists": float(np.abs(g[1] - c[1])[~ident].max()),
+                    "grad": float(max(np.abs(g[3] - c[3]).max(),
+                                      np.abs(g[4] - c[4]).max()))}
+            if not (errs["loss"] <= TRIPLET_LOSS_RTOL and g[2] == c[2]
+                    and errs["dists"] <= TRIPLET_DIST_ATOL
+                    and errs["grad"] <= TRIPLET_GRAD_ATOL):
+                raise AssertionError(f"triplet {mode}, use_anc_as_pos {uap}:"
+                                     f" card vs CPU {errs}, num_active "
+                                     f"{g[2]} vs {c[2]}")
+            worst = {k: max(v, errs[k]) for k, v in worst.items()}
+    log(f"  triplet loss, card vs CPU (f32, {TRIPLET_A} x {TRIPLET_P}, d "
+        f"{TRIPLET_D}, 4 modes x use_anc_as_pos): worst loss "
+        f"{worst['loss']:.2e} relative, distances {worst['dists']:.2e}, "
+        f"gradients {worst['grad']:.2e}; num_active equal")
+    return worst
+
+
+def phase_triplet_tools(dev, main_path, ivfpq):
+    """Phase 10: the Online-Triplet training path, ACT_STORE, IVF-PQ's int8
+    decode and dataset2wav."""
+    import copy
+
+    import numpy as np
+    import torch
+    import yaml
+    from nafp_tpu_torch.cli import main as cli
+    from nafp_tpu_torch.data.audio_io import load_memmap, load_wav_segment
+    from nafp_tpu_torch.data.catalog import Dataset
+    from nafp_tpu_torch.extras import bench_quant, dataset2wav
+    import nafp_tpu_torch.search.index as I
+    from nafp_tpu_torch.search import topk as T
+    from nafp_tpu_torch.train import trainer as TR
+
+    out, by_run = {"triplet_loss": triplet_card_vs_cpu(dev)}, {}
+    data = os.path.join(WORK, "train_data")       # phase 7's corpus
+
+    # one full-width now_playing step ('hardest'), 2 anchors x 4 replicas
+    # with bg, IR and SpecAugment, card against CPU in f32
+    t0 = time.perf_counter()
+    cfg32 = train_corpus_cfg(data, "now_playing", MIXED_PRECISION=False)
+    cfg32["LOSS"]["MINING_MODE"] = "hardest"
+    cfg32["BSZ"].update(TR_BATCH_SZ=10, TR_N_ANCHOR=2)
+    batch = {k: torch.from_numpy(v) for k, v in
+             Dataset(cfg32).get_train_ds()[0].items() if k in TR.BATCH_KEYS}
+    if batch["replicas"].shape[0] != 8:
+        raise AssertionError(f"now_playing batch {batch['replicas'].shape}")
+    draws = host_draws(cfg32, 8, torch.Generator().manual_seed(SEED + 12),
+                       n_all=10)
+    state = TR.build_fp(cfg32)[2].state_dict()
+    cpu_loss, cpu_g = step_loss_grads(cfg32, state, batch, draws,
+                                      torch.device("cpu"))
+    gpu_loss, gpu_g = step_loss_grads(cfg32, state, batch, draws, dev)
+    loss_rel = abs(gpu_loss / cpu_loss - 1)
+    grad_rel = max(float((gpu_g[n] - cpu_g[n]).norm() / cpu_g[n].norm())
+                   for n in cpu_g)
+    log(f"  one now_playing step ('hardest', 2 x 4), card vs CPU (f32): loss "
+        f"{gpu_loss:.6f} vs {cpu_loss:.6f} ({loss_rel:.2e} relative, "
+        f"tolerance {STEP_LOSS_RTOL}); worst gradient leaf {grad_rel:.2e} "
+        f"relative over {len(cpu_g)} leaves (tolerance {STEP_GRAD_RTOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (cpu_loss > 0 and loss_rel <= STEP_LOSS_RTOL
+            and grad_rel <= STEP_GRAD_RTOL):
+        raise AssertionError(f"now_playing step card vs CPU: loss "
+                             f"{loss_rel}, gradients {grad_rel}")
+    out["step_card_vs_cpu"] = dict(loss_rel=loss_rel, grad_rel=grad_rel)
+
+    # cli train -c <now_playing, hardest> for one epoch on phase 7's corpus,
+    # then generate + evaluate -i l2 (B1) of its checkpoint
+    cfg = train_corpus_cfg(data, "now_playing")
+    cfg["LOSS"]["MINING_MODE"] = "hardest"
+    path = os.path.join(WORK, "triplet.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cli(["train", TRIPLET_NAME, "-c", path, "--max_epoch", "1"],
+        standalone_mode=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    (run,) = train_runs(TRIPLET_NAME)
+    m = train_metrics(run)
+    steps = ckpt_meta(TRIPLET_NAME, 1)["step"]
+    losses = [m["loss/train"][1], m["loss/val"][1]]
+    log(f"  cli train -c now_playing (hardest) --max_epoch 1: {secs:.1f} s, "
+        f"{steps} steps of bsz 120 (24 anchors x 4); train / val loss "
+        f"{losses[0]:.4f} / {losses[1]:.4f}; step "
+        f"{m['throughput/step_ms'][1]:.2f} ms, "
+        f"{m['throughput/segments_per_sec'][1]:.1f} segments/s (the CLI's "
+        f"EMA); peak device memory {peak / 2**30:.2f} GiB")
+    if not (np.isfinite(losses).all() and losses[0] > 0):
+        raise AssertionError(f"now_playing losses {losses}")
+    served = serve_checkpoint(cli, T, path, "train_emb", 1, dev,
+                              name=TRIPLET_NAME)
+    by_run["triplet l2"] = served["launches"]
+    log(f"  now_playing checkpoint 1: top-1 exact % at 1/2/3 s "
+        f"{served['top1']} over {TRAIN_DB_ROWS} DB rows (generate + "
+        f"evaluate -i l2), launches {served['launches']}")
+    out["cli_train"] = dict(seconds=secs, steps=steps, peak_bytes=peak,
+                            train_loss=losses[0], val_loss=losses[1],
+                            step_ms=m["throughput/step_ms"][1],
+                            segments_per_sec=m[
+                                "throughput/segments_per_sec"][1],
+                            served=served)
+
+    # ACT_STORE: generate --act_store over phase 3's corpus, against the
+    # bf16 memmaps; evaluate -i l2 (B1) of each against bf16's top-1 hits
+    n_sl = main_path["l2_top1"].shape[1]
+    act = {}
+    for mode in ("int8", "fp8"):
+        c = copy.deepcopy(main_path["cfg"])
+        c["DIR"]["OUTPUT_ROOT_DIR"] = f"{WORK}/emb_{mode}/"
+        cpath = os.path.join(WORK, f"act_{mode}.yaml")
+        with open(cpath, "w") as f:
+            yaml.safe_dump(c, f)
+        t0 = time.perf_counter()
+        cli(["generate", NAME, str(INDEX), "-c", cpath, "--yes",
+             "--act_store", mode], standalone_mode=False)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        emb_dir = os.path.join(WORK, f"emb_{mode}", NAME, str(INDEX))
+        cos = []
+        for key in ("dummy_db", "db", "query"):
+            a = np.asarray(load_memmap(emb_dir, key, display=False)[0])
+            b = np.asarray(load_memmap(main_path["emb_dir"], key,
+                                       display=False)[0])
+            cos.append((a * b).sum(1))
+        cos = np.concatenate(cos)
+        T.reset_launches()
+        cli(["evaluate", NAME, str(INDEX), "-c", cpath, "-i", "l2", "-t",
+             str(N_TEST), "--emb_dummy_dir", main_path["dummy_dir"]],
+            standalone_mode=False)
+        by_run[f"act_store {mode} l2"] = dict(T.LAUNCHES)
+        raw = np.load(os.path.join(emb_dir, "raw_score.npy"))
+        agree = float((raw[:, :n_sl] == main_path["l2_top1"]).mean())
+        act[mode] = dict(cos_min=float(cos.min()), cos_mean=float(cos.mean()),
+                         top1_agree=agree, generate_s=gen_s,
+                         launches=by_run[f"act_store {mode} l2"])
+        log(f"  generate --act_store {mode}: {len(cos)} fingerprints in "
+            f"{gen_s:.1f} s, cosine with bf16 min {cos.min():.4f} / mean "
+            f"{cos.mean():.4f}; evaluate -i l2 top-1 hits equal to bf16's on "
+            f"{agree:.4f} of {N_TEST} ids x {n_sl} lengths, launches "
+            f"{by_run[f'act_store {mode} l2']}")
+        if not (cos.min() >= ACT_COS_MIN[mode]
+                and cos.mean() >= ACT_COS_MEAN[mode]
+                and by_run[f"act_store {mode} l2"]["topk_ip"] > 0):
+            raise AssertionError(f"ACT_STORE {mode}: {act[mode]}")
+    act["bench_quant"] = bench_quant.main([])
+    out["act_store"] = act
+
+    # IVF-PQ's int8 decode on phase 3's store: a chunk decoded on the card
+    # equals the plain decode (the dequantised books through the f32 gather
+    # decode) and the CPU's; top-1 against the exact scan (B1) of noisy
+    # copies of DB rows (the 100x protocol's queries: phase 3's random
+    # weights leave its query segments' nearest rows near-tied), the int8
+    # decode against the f32 decode (B3)
+    from nafp_tpu_torch.extras.run_100x_protocol import make_queries
+    full_db, _ = protocol_db(main_path)
+    q, _ = make_queries(full_db, PQ_INT8_QUERIES)
+    T.reset_launches()
+    _, exact = I.FlatIndex(full_db, metric="l2", device=dev).search(q, 1)
+    by_run["ivfpq decode: exact l2 (API)"] = dict(T.LAUNCHES)
+    pq = {}
+    for dec in ("f32", "int8"):
+        idx = I.IVFPQIndex.load(ivfpq["store"], nprobe=NPROBE, device=dev)
+        idx.decode_int8 = dec == "int8"
+        if dec == "int8":
+            cs = min(idx.CHUNK_ROWS, idx.n_pad)
+            codes, sub = idx.codes[:cs], idx.sub_list[:cs // LIST_TILE]
+            got = idx._decode_chunk(codes, sub)
+            bq, bs = idx._quantized_books()
+            plain = I._pq_decode_chunk(codes, sub, bq.float() * bs[:, None],
+                                       idx.centroids, lt=LIST_TILE)
+            cpu = I._pq_decode_chunk_i8(codes.cpu(), sub.cpu(), bq.cpu(),
+                                        bs.cpu(), idx.centroids.cpu(),
+                                        lt=LIST_TILE)
+            if not (torch.equal(got, plain) and torch.equal(got.cpu(), cpu)):
+                raise AssertionError("int8 decode differs from the plain "
+                                     "decode or the CPU's")
+        T.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ids = idx.search(q, K)
+        ms = (time.perf_counter() - t0) * 1e3
+        by_run[f"ivfpq {dec} decode (API)"] = dict(T.LAUNCHES)
+        pq[dec] = dict(top1_agree=float((ids[:, 0] == exact[:, 0]).mean()),
+                       search_ms=ms, launches=dict(T.LAUNCHES), ids=ids)
+        del idx
+    same = float((pq["int8"].pop("ids") == pq["f32"].pop("ids")).mean())
+    pq["int8"]["ids_equal_to_f32"] = same
+    log(f"  IVF-PQ, {len(q)} noisy copies of DB rows: top-1 equal to the "
+        f"exact scan's on {pq['f32']['top1_agree']:.4f} (f32 decode) / "
+        f"{pq['int8']['top1_agree']:.4f} (int8 decode); search "
+        f"{pq['f32']['search_ms']:.1f} / {pq['int8']['search_ms']:.1f} ms "
+        f"(host clock, one call); B3 launches {pq['f32']['launches']} / "
+        f"{pq['int8']['launches']}; top-{K} ids equal to the f32 decode's on "
+        f"{same:.4f}; a {cs}-row chunk decoded on the card equals the plain "
+        "decode and the CPU's bit for bit")
+    if not (abs(pq["int8"]["top1_agree"] - pq["f32"]["top1_agree"])
+            <= PQ_INT8_AGREE_SLACK
+            and pq["int8"]["launches"]["topk_ip_masked"]
+            == pq["f32"]["launches"]["topk_ip_masked"] > 0):
+        raise AssertionError(f"IVF-PQ int8 decode: {pq}")
+    out["ivfpq_int8"] = pq
+
+    # dataset2wav --split val on phase 7's corpus, on the card
+    wav_dir = os.path.join(WORK, "d2w")
+    t0 = time.perf_counter()
+    n = dataset2wav.synthesize(train_corpus_cfg(data), wav_dir, "val", 1,
+                               42, device=dev)
+    names = sorted(os.listdir(wav_dir))
+    peak_abs = 0.0
+    for name in names:
+        x = load_wav_segment(os.path.join(wav_dir, name), 0, 8000,
+                             expected_fs=8000)
+        peak_abs = max(peak_abs, float(np.abs(x).max()))
+    expect = (TRAIN_SONGS // 4) * (int((SONG_SEC - 1) / 0.5) + 1)
+    log(f"  dataset2wav --split val: {n} WAVs in "
+        f"{time.perf_counter() - t0:.1f} s ({TRAIN_SONGS // 4} songs of "
+        f"{SONG_SEC} s), read back through data/audio_io.py, peak "
+        f"|x| {peak_abs:.3f}")
+    if not (n == len(names) == expect and 0 < peak_abs <= 1.0):
+        raise AssertionError(f"dataset2wav wrote {n} / {len(names)} WAVs, "
+                             f"expected {expect}")
+    out["dataset2wav"] = dict(n_wavs=n)
+    out["launches_by_run"] = by_run
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2616,7 +2922,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = resolve_device()
     smi = nvidia_smi_line()
-    log(f"[1/9] device: {torch.cuda.get_device_name(0)} x "
+    log(f"[1/10] device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
     build_s, logs = kernels.build_all()
@@ -2637,31 +2943,36 @@ def main() -> int:
         log(f"  ({name} took {phase_s[name]:.1f} s)")
         return out
 
-    log("[2/9] kernels against their plain versions")
+    log("[2/10] kernels against their plain versions")
     rec = timed("kernels", phase_kernels, dev)
-    log("[3/9] serving path through the CLI (full width)")
+    log("[3/10] serving path through the CLI (full width)")
     main_path = timed("main path", phase_main_path, dev)
     ivf_sq8 = timed("IVF-SQ8", phase_ivf_sq8, dev, main_path)
     ivfpq = timed("IVF-PQ store", phase_ivfpq_store, dev, main_path)
-    log("[4/9] the sq8 kernel bench (B4a, B4b)")
+    log("[4/10] the sq8 kernel bench (B4a, B4b)")
     bench = timed("sq8 kernel bench", phase_bench, dev, rec["b4"])
-    log("[5/9] card against CPU")
+    log("[5/10] card against CPU")
     enc = timed("card vs CPU", phase_card_vs_cpu, dev, main_path, ivfpq)
-    log("[6/9] the device-resident corpus")
+    log("[6/10] the device-resident corpus")
     corpus = timed("device corpus", phase_device_corpus, dev, main_path)
-    log("[7/9] training path (full width)")
+    log("[7/10] training path (full width)")
     training = timed("training", phase_training, dev)
-    log("[8/9] the measurement entry points")
+    log("[8/10] the measurement entry points")
     measurement = timed("measurement", phase_measurement, dev)
-    log("[9/9] sharded search, generate over the cards, a one-rank NCCL "
+    log("[9/10] sharded search, generate over the cards, a one-rank NCCL "
         "group")
     sharded = timed("sharded", phase_sharded, dev, main_path, ivf_sq8)
+    log("[10/10] the Online-Triplet path, ACT_STORE, IVF-PQ's int8 decode, "
+        "dataset2wav")
+    triplet = timed("triplet and tools", phase_triplet_tools, dev, main_path,
+                    ivfpq)
 
     kernels_line = []
     for name in ("topk_ip", "topk_ip_sq8", "topk_ip_masked"):
         r = dict(rec[name])
         by_run = {**main_path["launches_by_run"],
-                  **sharded["launches_by_run"]}
+                  **sharded["launches_by_run"],
+                  **triplet["launches_by_run"]}
         r["launches"] = sum(n[name] for n in by_run.values())
         r["launches_by_run"] = {run: n[name] for run, n in by_run.items()
                                 if n[name]}
@@ -2701,7 +3012,7 @@ def main() -> int:
     summary = {k: v for k, v in main_path.items()
                if k not in ("cfg", "variables", "cfg_path", "dummy_dir",
                             "emb_dir", "l2_top1", "data", "raw")}
-    summary.update(enc, training=training, sharded=sharded,
+    summary.update(enc, training=training, sharded=sharded, triplet=triplet,
                    ivf_sq8={k: v for k, v in ivf_sq8.items()
                             if k not in ("raw", "store")},
                    measurement=measurement,

@@ -14,7 +14,9 @@ Stages (each skipped when its artifact already exists):
                 ``default_rng(12345)``: the same bytes as the JAX writer,
                 so either package's DB feeds the other.
   2. build    — ``sq8`` (the int8 flat scan, kernel B2), ``ivf-sq8``,
-                ``ivfpq`` (kernel B3) or ``ivfpq-rr``; the store is
+                ``ivfpq`` (kernel B3; ``--pq_decode int8`` decodes from
+                int8 codebooks, set after a load as in the JAX script) or
+                ``ivfpq-rr``; the store is
                 persisted as ``sq8_store.npz`` / ``ivfsq8_store.npz`` /
                 ``ivfpq_store.npz`` in the JAX package's format (loads in
                 either package) and reused when present.
@@ -34,8 +36,8 @@ Results are appended as JSON lines to ROOT/results.jsonl.
 Usage:
     python -m nafp_tpu_torch.extras.run_100x_protocol [--n 53600000]
         [--nq 2048] [--root DIR] [--stages gen,build,qps,recall]
-        [--index ivf-sq8|ivfpq|ivfpq-rr|sq8] [--gt planted|host|device]
-        [--cpu]
+        [--index ivf-sq8|ivfpq|ivfpq-rr|sq8] [--pq_decode f32|int8]
+        [--gt planted|host|device] [--cpu]
 """
 from __future__ import annotations
 
@@ -56,10 +58,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 # default working directories of the measurement entry points (listed in
 # .gitignore): the checkout's own, never a shared system directory
 RUN_ROOT = os.path.join(REPO, "bench_run")
-PQ_DECODE_INT8 = (
-    "--pq_decode int8 (the JAX package's s8 IVF-PQ decode) is not ported: "
-    "ROADMAP.md Queue 1 item 12 keeps it out until a card measurement at "
-    ">= 8.4M rows shows a gain")
 
 
 def stage_gen(root: str, n: int, chunk: int = 1 << 20) -> str:
@@ -123,14 +121,15 @@ def _cached_n(path: str) -> int:
 
 def stage_build(root: str, out: dict, index: str = "ivf-sq8",
                 pq_decode: str = "f32", device=None):
-    """Train + add (or load the persisted store) on ``device``."""
-    if pq_decode != "f32":
-        raise NotImplementedError(PQ_DECODE_INT8)
+    """Train + add (or load the persisted store) on ``device``;
+    ``pq_decode`` ('f32' or 'int8'): the IVF-PQ decode."""
+    if pq_decode not in ("f32", "int8"):
+        raise ValueError(f"pq_decode {pq_decode!r}: 'f32' or 'int8'")
     dev = resolve_device(device)
     if index == "ivfpq":
-        return _build_ivfpq(root, out, dev)
+        return _build_ivfpq(root, out, dev, pq_decode)
     if index == "ivfpq-rr":
-        return _build_ivfpq_rr(root, out, dev)
+        return _build_ivfpq_rr(root, out, dev, pq_decode)
     if index == "sq8":
         return _build_sq8(root, out, dev)
     if index != "ivf-sq8":
@@ -192,7 +191,7 @@ def _build_sq8(root: str, out: dict, dev):
     return idx
 
 
-def _build_ivfpq(root: str, out: dict, dev):
+def _build_ivfpq(root: str, out: dict, dev, pq_decode: str = "f32"):
     """IVF-PQ with the reference's parameters (nlist 256, 64 x 8-bit codes,
     ``get_index_faiss.py:69-74``), trained on 512 k sampled rows: 64 B of
     codes a row, ~3.4 GB at 53.6 M rows."""
@@ -204,13 +203,14 @@ def _build_ivfpq(root: str, out: dict, dev):
             print(f"[build] loading persisted index {cache}", flush=True)
             t0 = time.perf_counter()
             idx = IVFPQIndex.load(cache, device=dev)
+            idx.decode_int8 = pq_decode == "int8"
             print(f"[build] store resident in "
                   f"{time.perf_counter()-t0:.0f}s", flush=True)
             out.update(index="ivfpq", nlist=idx.nlist, m=idx.m,
-                       pq_decode="f32", build_cached=True)
+                       pq_decode=pq_decode, build_cached=True)
             return idx
         os.remove(cache)
-    idx = IVFPQIndex(d=D, device=dev)
+    idx = IVFPQIndex(d=D, device=dev, decode_int8=pq_decode == "int8")
     t0 = time.perf_counter()
     idx.train(mm, max_train=1 << 19)
     t_train = time.perf_counter() - t0
@@ -221,15 +221,15 @@ def _build_ivfpq(root: str, out: dict, dev):
     t_add = time.perf_counter() - t0
     print(f"[build] added {idx.ntotal:,} rows in {t_add:.0f}s; store "
           f"persisted to {cache}", flush=True)
-    out.update(index="ivfpq", nlist=idx.nlist, m=idx.m, pq_decode="f32",
+    out.update(index="ivfpq", nlist=idx.nlist, m=idx.m, pq_decode=pq_decode,
                train_sec=round(t_train, 1), add_sec=round(t_add, 1))
     return idx
 
 
-def _build_ivfpq_rr(root: str, out: dict, dev):
+def _build_ivfpq_rr(root: str, out: dict, dev, pq_decode: str = "f32"):
     """ivfpq-rr: the persisted ivfpq store plus the raw f32 rows uploaded
     for the exact re-rank (refine stores are not persisted)."""
-    idx = _build_ivfpq(root, out, dev)
+    idx = _build_ivfpq(root, out, dev, pq_decode)
     mm = load_mm(root)
     t0 = time.perf_counter()
     idx.raw = chunked_device_put(mm, dev)
@@ -368,8 +368,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions)")
     ap.add_argument("--pq_decode", choices=("f32", "int8"), default="f32",
-                    help="ivfpq decode path; 'int8' is not ported and "
-                         "raises")
+                    help="ivfpq decode path: 'int8' decodes from int8 "
+                         "codebooks with an f32 scale per (m, dim)")
     ap.add_argument("--qblock", type=int, default=None,
                     help="search query-block size")
     ap.add_argument("--gt", choices=("planted", "host", "device"),
@@ -378,8 +378,6 @@ def main(argv=None) -> dict:
                          "(cached, checks the planted shortcut); 'device' "
                          "= kernel B1 over the memmap in uploaded chunks")
     args = ap.parse_args(argv)
-    if args.pq_decode != "f32":     # fail before hours of generation
-        raise NotImplementedError(PQ_DECODE_INT8)
     dev = resolve_device("cpu" if args.cpu else None)
     os.makedirs(args.root, exist_ok=True)
     stages = set(args.stages.split(","))
@@ -407,7 +405,7 @@ def main(argv=None) -> dict:
     if {"build", "qps", "recall"} & stages:
         out_build = {}
         idx = stage_build(args.root, out_build, index=args.index,
-                          device=dev)
+                          pq_decode=args.pq_decode, device=dev)
         out.update(out_build)
 
     results_path = os.path.join(args.root, "results.jsonl")

@@ -4,10 +4,13 @@ recipe on a synthetic corpus, trained to the end of its schedule and
 scored on the ICASSP protocol.
 
 Counterpart of ``extras/run_convergence.py``, with the same stages and
-flags:
+flags. ``--recipe now_playing`` trains the Online-Triplet loss, with
+``--mining_mode`` and ``--margin`` overriding ``LOSS.MINING_MODE`` and
+``LOSS.MARGIN``:
 
-  data     — synthesize the corpus with ``extras/make_synth_dataset.py``
-             (numpy only, run as a subprocess): ``--n_train`` songs of
+  data     — synthesize the corpus with the port's
+             ``make_synth_dataset.py`` (numpy only, run as a
+             subprocess): ``--n_train`` songs of
              ``--sec`` s, a quarter as many validation songs, ``--n_query``
              (500) query/db pairs and ``--n_dummy`` dummy-DB songs. The dummy songs do
              not depend on the rest, so a second subprocess writes them
@@ -17,7 +20,11 @@ flags:
              ``load_config``: paths under ROOT, ``DEVICE.DEVICE_CORPUS`` on
              (``DEVICE_CORPUS_MAX_GB`` 4), a checkpoint every 10 epochs,
              ``MINI_TEST_IN_TRAIN`` and ``SAVE_IMG`` off.
-  train    — ``python -m nafp_tpu_torch.cli train NAME -c CONFIG``.
+  train    — ``python -m nafp_tpu_torch.cli train NAME -c CONFIG``;
+             ``--stop_epoch N`` stops it once checkpoint N is written,
+             its schedule still MAX_EPOCH's (the JAX package's
+             ``measurements/convtriphard_ep10_l2.json`` is epoch 10 of a
+             100-epoch run).
   generate — fingerprints for {dummy_db, db, query} at the final epoch.
   evaluate — the sequence-level ICASSP protocol (hit rates x {1, 3, 5, 9,
              11, 19} segments) with the fixed test ids, once per index
@@ -54,7 +61,8 @@ from typing import Optional
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SYNTH = os.path.join(REPO, "extras", "make_synth_dataset.py")
+SYNTH = os.path.join(REPO, "nafp_tpu_torch", "extras",
+                     "make_synth_dataset.py")
 NAMES = {"640_lamb": "conv640", "now_playing": "convtrip",
          "default": "convdef"}
 INIT_INDEX = 0          # the checkpoint index of the untrained model
@@ -83,6 +91,27 @@ def sh(args, root: str) -> float:
     secs = time.perf_counter() - t0
     print(f"  [{' '.join(args[3:5])}] {secs:.0f}s", flush=True)
     return secs
+
+
+def train_until(args, root: str, marker: str, poll_s: float = 2.0) -> None:
+    """Run the train command until ``marker`` (a checkpoint's meta.json,
+    which appears with the whole checkpoint: the trainer renames it into
+    place) exists, then stop it."""
+    print(f"+ {' '.join(args)} (until {marker})", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, cwd=root, env=_env())
+    try:
+        while proc.poll() is None and not os.path.exists(marker):
+            time.sleep(poll_s)
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            proc.wait()
+    if not os.path.exists(marker):
+        raise RuntimeError(f"training exited ({proc.returncode}) before "
+                           f"{marker}")
+    print(f"  [train until {os.path.basename(os.path.dirname(marker))}] "
+          f"{time.perf_counter() - t0:.0f}s", flush=True)
 
 
 def _synth(root: str, n_train: int, n_query: int, n_dummy: int,
@@ -238,6 +267,9 @@ def main(argv=None) -> None:
                          "separate checkpoint/emb trees under one corpus")
     ap.add_argument("--stages",
                     default="data,config,train,generate,evaluate")
+    ap.add_argument("--stop_epoch", type=int, default=None,
+                    help="stop training once this epoch's checkpoint is "
+                         "written (the schedule stays --epochs')")
     ap.add_argument("--nogpu", action="store_true",
                     help="run train, generate and evaluate on the CPU")
     ap.add_argument("--profile", action="store_true",
@@ -247,10 +279,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.profile and args.nogpu:
         raise ValueError("--profile reads the card's trace: not with --nogpu")
-    if args.recipe == "now_playing":
-        raise NotImplementedError(
-            "--recipe now_playing trains the Online-Triplet loss, which is "
-            "not ported yet (ROADMAP.md Queue 1 item 12)")
     stages = set(args.stages.split(","))
     root = os.path.abspath(args.root)
     os.makedirs(root, exist_ok=True)
@@ -268,11 +296,15 @@ def main(argv=None) -> None:
             stage_config(root, args.epochs, args.recipe, name,
                          margin=args.margin, mining_mode=args.mining_mode)
         if "train" in stages:
-            final = int(read_config(root, name)["TRAIN"]["MAX_EPOCH"])
+            final = args.stop_epoch or int(
+                read_config(root, name)["TRAIN"]["MAX_EPOCH"])
             done = os.path.join(root, "logs", "checkpoint", name, str(final),
-                                "params.npz")
+                                "meta.json")
             if os.path.exists(done):
                 print(f"[train] checkpoint {final} exists", flush=True)
+            elif args.stop_epoch:
+                train_until(cli + ["train", name, "-c", cfg_path] + gpu,
+                            root, done)
             else:
                 sh(cli + ["train", name, "-c", cfg_path] + gpu, root)
         data.wait()

@@ -27,6 +27,14 @@ DivEnc take bf16 inputs (DivEnc accumulates in f32, as the TPU's
 bf16 x bf16 -> f32 products); normalisation statistics and the final
 L2-normalize run in f32; parameters are always f32.
 
+``MODEL.ACT_STORE`` ('int8' or 'fp8'; inference only, keyed on the
+module's eval mode): every ConvLayer stores its two normalised
+activations at one byte an element and widens them back to the compute
+dtype before the next convolution, as the JAX package's
+``_compress_act``/``_decompress_act``: 'int8' is ``round(x·16)`` clamped
+to ±127 (a fixed power-of-two scale, no calibration), 'fp8' is
+``torch.float8_e4m3fn``.
+
 Initialisation draws from a ``torch.Generator`` seeded by the caller
 (never the global RNG): glorot-uniform convolution kernels and per-slice
 glorot DivEnc weights, zero biases, unit scales, as the Flax initialisers
@@ -53,6 +61,44 @@ DEFAULT_STRIDES: Tuple[Tuple[Tuple[int, int], Tuple[int, int]], ...] = (
 )
 DEFAULT_CHANNELS: Tuple[int, ...] = (128, 128, 256, 256, 512, 512, 1024, 1024)
 NORMS = ("layer_norm2d", "layer_norm1d", "batch_norm")
+ACT_STORES = (None, "int8", "fp8")
+# Fixed int8 activation scale of ACT_STORE 'int8': the normalised
+# activations are ~ gamma·N(0,1) + beta, so ±127/16 = ±7.9 covers them in
+# steps of 1/16; a power of two, so the dequantising multiply is exact.
+_INT8_ACT_SCALE = 16.0
+# float8_e4m3fn has no infinity: 448 is its largest value, and |x| above
+# the midpoint 464 rounds to the NaN code in XLA and ml_dtypes (its sign
+# kept), where PyTorch's cast saturates at 448
+_FP8_ROUNDS_TO_NAN = 464.0
+
+
+def _compress_act(x: torch.Tensor, mode: Optional[str]) -> torch.Tensor:
+    """An activation at one byte an element: 'int8' rounds x·16 half to
+    even (``jnp.round``'s rule) in f32 and clamps to ±127; 'fp8' rounds to
+    float8_e4m3fn half to even from f32 (exact from bf16), a value past
+    the format's range to NaN, as XLA's convert; None passes ``x``
+    through."""
+    if mode == "int8":
+        return torch.clamp(torch.round(x.float() * _INT8_ACT_SCALE),
+                           -127.0, 127.0).to(torch.int8)
+    if mode == "fp8":
+        xf = x.float()
+        code = xf.to(torch.float8_e4m3fn).view(torch.uint8)
+        nan = torch.where(torch.signbit(xf), 0xFF, 0x7F).to(torch.uint8)
+        return torch.where(xf.abs() > _FP8_ROUNDS_TO_NAN, nan,
+                           code).view(torch.float8_e4m3fn)
+    return x
+
+
+def _decompress_act(x: torch.Tensor, mode: Optional[str],
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of _compress_act into ``dtype``; a tensor that was not
+    compressed (the log-mel input, a float tap) passes through."""
+    if mode == "int8" and x.dtype == torch.int8:
+        return x.to(dtype) * (1.0 / _INT8_ACT_SCALE)
+    if mode == "fp8" and x.dtype == torch.float8_e4m3fn:
+        return x.to(dtype)
+    return x
 
 
 def _glorot_(w: torch.Tensor, fan_in: int, fan_out: int,
@@ -204,12 +250,18 @@ def _norm(kind: str, shape: Tuple[int, int, int]) -> nn.Module:
 
 
 class ConvLayer(nn.Module):
-    """Separable-style conv block (reference ``nnfp.py:20-83``)."""
+    """Separable-style conv block (reference ``nnfp.py:20-83``). With
+    ``act_store`` set and the module in eval mode, its input is widened
+    from, and its two normalised activations are stored at, one byte an
+    element (``dtype``: the compute dtype they widen to)."""
 
     def __init__(self, in_ch: int, hidden_ch: int,
                  strides: Tuple[Tuple[int, int], Tuple[int, int]],
-                 in_hw: Tuple[int, int], norm: str, gen: torch.Generator):
+                 in_hw: Tuple[int, int], norm: str, gen: torch.Generator,
+                 act_store: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.act_store, self.dtype = act_store, dtype
         self.conv_1x3 = SameConv2d(in_ch, hidden_ch, (1, 3), strides[0], in_hw,
                                    gen)
         hw1 = self.conv_1x3.out_hw
@@ -220,8 +272,10 @@ class ConvLayer(nn.Module):
         self.norm_2 = _norm(norm, (hidden_ch, *self.out_hw))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm_1(self.conv_1x3(x))
-        return self.norm_2(self.conv_3x1(x))
+        q = None if self.training else self.act_store
+        x = self.norm_1(self.conv_1x3(_decompress_act(x, q, self.dtype)))
+        x = _decompress_act(_compress_act(x, q), q, self.dtype)
+        return _compress_act(self.norm_2(self.conv_3x1(x)), q)
 
 
 def _lowp_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
@@ -272,22 +326,28 @@ class FingerPrinter(nn.Module):
     ``input_hw`` is the log-mel (F, T): layer_norm2d's per-position
     parameters depend on it, as in the JAX package, where the first call
     fixes their shapes. ``seed`` seeds the generator the weights are
-    drawn from."""
+    drawn from. ``act_store`` (None, 'int8', 'fp8'): the activation
+    storage of inference (eval mode)."""
 
     def __init__(self, input_hw: Tuple[int, int], emb_sz: int = 128,
                  front_hidden_ch: Sequence[int] = DEFAULT_CHANNELS,
                  front_strides: Sequence = DEFAULT_STRIDES,
                  fc_unit_dim: Tuple[int, int] = (32, 1),
                  norm: str = "layer_norm2d", use_l2layer: bool = True,
-                 dtype: torch.dtype = torch.float32, seed: int = 0):
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
+                 act_store: Optional[str] = None):
         super().__init__()
+        if act_store not in ACT_STORES:
+            raise ValueError(f"MODEL.ACT_STORE must be int8|fp8, got "
+                             f"{act_store}")
         gen = torch.Generator().manual_seed(seed)
         ch = list(front_hidden_ch)
         if ch[-1] % emb_sz != 0:  # round up (nnfp.py:211-212)
             ch[-1] = (ch[-1] // emb_sz + 1) * emb_sz
         layers, in_ch, hw = [], 1, tuple(input_hw)
         for i in range(len(front_strides)):
-            layer = ConvLayer(in_ch, ch[i], front_strides[i], hw, norm, gen)
+            layer = ConvLayer(in_ch, ch[i], front_strides[i], hw, norm, gen,
+                              act_store, dtype)
             layers.append(layer)
             in_ch, hw = ch[i], layer.out_hw
         self.conv_layers = nn.ModuleList(layers)
@@ -296,12 +356,15 @@ class FingerPrinter(nn.Module):
         self.norm = norm
         self.use_l2layer = use_l2layer
         self.dtype = dtype
+        self.act_store = act_store
 
     def front(self, x: torch.Tensor) -> torch.Tensor:
         """f(.): conv stack + NHWC flatten -> (B, D). ``x`` is (B,F,T,1)."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)          # NHWC -> NCHW
         for layer in self.conv_layers:
             x = layer(x)
+        x = _decompress_act(x, None if self.training else self.act_store,
+                            self.dtype)
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -323,14 +386,12 @@ def get_fingerprinter(cfg: Dict[str, Any],
     """Build from a config dict (reference ``nnfp.py:234-258``).
 
     ``MODEL.FRONT_HIDDEN_CH`` overrides the channel plan (small ablations
-    and test models). ``MODEL.ACT_STORE`` (int8/fp8 activation storage) is
-    not ported yet and raises. ``seed`` seeds the initial weights (0 when
-    None: weights that a checkpoint then replaces)."""
+    and test models); ``MODEL.ACT_STORE`` ('int8', 'fp8' or empty) sets
+    the activation storage of inference (any other value raises). ``seed``
+    seeds the initial weights (0 when None: weights that a checkpoint then
+    replaces)."""
     from nafp_tpu_torch.ops.melspec import MelSpecConfig
     m = cfg["MODEL"]
-    if m.get("ACT_STORE"):
-        raise NotImplementedError(
-            "MODEL.ACT_STORE is not ported yet (later slice, see ROADMAP)")
     mcfg = MelSpecConfig.from_cfg(cfg)
     dtype = torch.bfloat16 if m.get("MIXED_PRECISION", True) else torch.float32
     return FingerPrinter(input_hw=(mcfg.n_mels, mcfg.n_frames),
@@ -338,4 +399,5 @@ def get_fingerprinter(cfg: Dict[str, Any],
                          front_hidden_ch=tuple(m.get("FRONT_HIDDEN_CH",
                                                      DEFAULT_CHANNELS)),
                          norm=m["BN"], dtype=dtype,
-                         seed=0 if seed is None else int(seed))
+                         seed=0 if seed is None else int(seed),
+                         act_store=m.get("ACT_STORE") or None)

@@ -352,6 +352,14 @@ class IVFPQIndex:
 
     ``refine`` (``ivfpq-rr``): keep the raw vectors on the device and
     rescore the top 4·k candidates exactly in f32.
+
+    ``decode_int8``: decode from int8-quantised codebooks with an f32 scale
+    per (subquantizer, dimension) (``_quantized_books``, computed once from
+    the f32 books, not persisted) instead of the f32 books: the JAX
+    package's s8 one-hot product selects the int8 codeword exactly, so
+    here it is a gather of it, then the rescale and the centroid in f32.
+    Its error is the codebooks' quantisation, at most max|book_m| / 254 a
+    dimension.
     """
 
     LIST_TILE = 128   # rows per single-list subtile (probe-mask granularity)
@@ -373,13 +381,15 @@ class IVFPQIndex:
 
     def __init__(self, d: int = 128, nlist: int = 256, m: int = 64,
                  nbits: int = 8, nprobe: int = 40, refine: bool = False,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, decode_int8: bool = False):
         if d % m:
             raise ValueError(f"d={d} is not a multiple of m={m}")
         self.d, self.nlist, self.m, self.nprobe = d, nlist, m, nprobe
         self.ksub = 2 ** nbits
         self.dsub = d // m
         self.refine = refine
+        self.decode_int8 = decode_int8
+        self._books_q_cache = None
         self.device = resolve_device(device)
         self.ntotal = 0
         self._trained = False
@@ -413,6 +423,7 @@ class IVFPQIndex:
             kmeans(resid[:, mi].contiguous(), self.ksub, iters=kmeans_iters,
                    seed=seed + 1 + mi)
             for mi in range(self.m)])                    # (m, ksub, dsub)
+        self._books_q_cache = None
         self._trained = True
 
     # -- add ---------------------------------------------------------------
@@ -532,8 +543,28 @@ class IVFPQIndex:
         return out
 
     # -- search ------------------------------------------------------------
+    def _quantized_books(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """int8 codebooks (m, ksub, dsub) and their f32 scale (m, dsub):
+        scale = max(max|book| over the ksub codewords, 1e-12) / 127, codes
+        round(book / scale) clipped to ±127, in numpy as the JAX package;
+        computed once, on the index's device."""
+        if self._books_q_cache is None:
+            b = self.codebooks.cpu().numpy().astype(np.float32)
+            scale = np.maximum(np.abs(b).max(axis=1, keepdims=True),
+                               1e-12) / 127.0                # (m, 1, dsub)
+            q = np.clip(np.round(b / scale), -127, 127).astype(np.int8)
+            self._books_q_cache = (
+                torch.from_numpy(q).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(
+                    scale[:, 0, :], np.float32)).to(self.device))
+        return self._books_q_cache
+
     def _decode_chunk(self, codes: torch.Tensor,
                       sub_list: torch.Tensor) -> torch.Tensor:
+        if self.decode_int8:
+            books_q, scale = self._quantized_books()
+            return _pq_decode_chunk_i8(codes, sub_list, books_q, scale,
+                                       self.centroids, lt=self.LIST_TILE)
         return _pq_decode_chunk(codes, sub_list, self.codebooks,
                                 self.centroids, lt=self.LIST_TILE)
 
@@ -649,6 +680,19 @@ def _pq_decode_chunk(codes, sub_list, codebooks, centroids, *, lt):
     rounding."""
     return _add_coarse(_pq_codewords(codes, codebooks), sub_list, centroids,
                        lt)
+
+
+def _pq_decode_chunk_i8(codes, sub_list, books_q, book_scale, centroids, *,
+                        lt):
+    """decode(x) from the int8 codebooks: each selected int8 codeword
+    (a gather: the JAX package's s8 x s8 -> s32 one-hot product selects
+    it exactly), times its f32 scale per (subquantizer, dimension), plus
+    the list's centroid, cast to bf16: codes (C, m) uint8 -> (C, d) bf16.
+    The same f32 operations as the JAX package, so on the CPU the two are
+    equal bit for bit."""
+    c, m = codes.shape
+    resid = _pq_codewords(codes, books_q).view(c, m, -1).float() * book_scale
+    return _add_coarse(resid.view(c, -1), sub_list, centroids, lt)
 
 
 def _pq_bias_list(q, centroids, *, nprobe):

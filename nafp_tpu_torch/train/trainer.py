@@ -5,9 +5,12 @@ Counterpart of ``nafp_tpu/train/trainer.py`` (reference
 of the replicas (ops/tdaug.py) -> log-mel of anchors and replicas
 together (the subtract-max runs over the whole batch, as in the JAX
 package) -> SpecAugment (training only) -> encoder forward/backward ->
-NT-Xent on ``emb[:n_anchor]`` against ``emb[n_anchor:]`` -> optimizer
-update, with the learning rate the schedule gives at the optimizer's
-pre-increment step. BatchNorm running statistics are updated by the
+the loss of ``emb[:n_anchor]`` against ``emb[n_anchor:]`` (``LOSS.
+LOSS_MODE``: NT-Xent, or the online triplet loss, mined with ``LOSS.
+MINING_MODE`` at ``LOSS.MARGIN`` in training and with mode 'all' at
+margin 0 in validation, as the JAX package) -> optimizer update, with
+the learning rate the schedule gives at the optimizer's pre-increment
+step. BatchNorm running statistics are updated by the
 model's forward pass in training mode, not by the optimizer.
 
 The host loader only reads waveforms; each batch goes up through reused
@@ -31,17 +34,16 @@ the songs. The log-mel subtract-max is the global batch's, NT-Xent
 gathers every rank's embeddings (its backward sums over the ranks),
 BatchNorm averages its statistics over the ranks, and the gradients are
 summed over the ranks (each rank's loss is its share of the global loss,
-so a sum, not DDP's average, is the global gradient): every rank ends a
-step with the same parameters. The step counts per epoch are the minimum
+so a sum, not DDP's average, is the global gradient; the triplet loss is
+mined on each rank's own rows with no gather, and its share is the
+rank's loss over the world size, the JAX package's ``pmean``): every
+rank ends a step with the same parameters. The step counts per epoch are the minimum
 over ranks. Only rank 0 writes checkpoints and metrics; the others wait
 at a barrier behind each save.
 
 ``DEVICE.DEVICE_CORPUS``: the training songs are resident on the card
 and each batch is gathered there (``data/device_corpus.py``); validation
 keeps the host loader, as in the JAX package.
-
-Not ported (raises): ``LOSS_MODE: Online-Triplet`` (ROADMAP.md Queue 1
-item 12).
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ from nafp_tpu_torch.data.device_corpus import maybe_device_loader
 from nafp_tpu_torch.data.loader import SegmentLoader, prefetch
 from nafp_tpu_torch.device import DeviceLike, resolve_device
 from nafp_tpu_torch.losses.ntxent import ntxent_loss
+from nafp_tpu_torch.losses.triplet import online_triplet_loss
 from nafp_tpu_torch.models.nnfp import FingerPrinter, get_fingerprinter
 from nafp_tpu_torch.ops.melspec import get_melspec_fn
 from nafp_tpu_torch.ops.specaug import get_specaug_fn
@@ -75,14 +78,15 @@ BATCH_KEYS = ("anchors", "replicas", "bg", "ir", "speech")
 # pinned buffer sets of BatchUploader: one is filled while the other's
 # copies may still be in flight
 UPLOAD_SLOTS = 2
+LOSS_MODES = ("NTXENT", "ONLINE-TRIPLET")
 
 
 def check_supported(cfg: Dict[str, Any]) -> None:
-    """Raise for what this slice does not train."""
-    if str(cfg["LOSS"]["LOSS_MODE"]).upper() != "NTXENT":
+    """Raise for a loss the trainer does not know."""
+    if str(cfg["LOSS"]["LOSS_MODE"]).upper() not in LOSS_MODES:
         raise NotImplementedError(
-            f"LOSS.LOSS_MODE {cfg['LOSS']['LOSS_MODE']!r}: only NTxent is "
-            "ported (the triplet branch is ROADMAP.md Queue 1 item 12)")
+            f"LOSS.LOSS_MODE {cfg['LOSS']['LOSS_MODE']!r}: 'NTxent' or "
+            "'Online-Triplet'")
 
 
 BSZ_SPLIT = ("TR_BATCH_SZ", "TR_N_ANCHOR", "VAL_BATCH_SZ", "VAL_N_ANCHOR")
@@ -140,13 +144,21 @@ def build_fp(cfg: Dict[str, Any], seed: int = INIT_SEED):
 def _make_loss_fn(cfg, melspec_fn, specaug_fn, model: FingerPrinter,
                   train: bool, aug_keys: Optional[frozenset] = None):
     """``loss_fn(batch, gen, draws=None) -> (loss, sim)`` on device
-    tensors. ``aug_keys`` names the augmentation sources the loader really
-    has (default: the batch's keys). ``draws`` replaces the generator's
+    tensors; ``sim`` is NT-Xent's logits or the triplet loss's distances.
+    ``aug_keys`` names the augmentation sources the loader really has
+    (default: the batch's keys). ``draws`` replaces the generator's
     draws: ``{"td": {"snr": (n, 1), "amp": (n, 1)}, "spec": [one dict per
     SpecAugment layer]}``. The model's mode (train/eval) is the caller's.
     Under a process group of more than one rank the batch is this rank's
     share, and the loss is its share of the global loss."""
+    check_supported(cfg)
+    triplet = str(cfg["LOSS"]["LOSS_MODE"]).upper() == "ONLINE-TRIPLET"
     tau = float(cfg["LOSS"]["TAU"])
+    # the reference pins 'semi-hard' in training (model/trainer.py:159-163);
+    # LOSS.MINING_MODE exposes the loss's other reductions, as in JAX
+    margin = float(cfg["LOSS"]["MARGIN"]) if train else 0.0
+    mining = (str(cfg["LOSS"].get("MINING_MODE", "semi-hard")) if train
+              else "all")
     td = cfg["TD_AUG"]
     pre = "TR" if train else "VAL"
     snr = tuple(td[f"{pre}_SNR"])
@@ -173,6 +185,11 @@ def _make_loss_fn(cfg, melspec_fn, specaug_fn, model: FingerPrinter,
         emb = model(feat)
         n = xa.shape[0]
         ea, ep = emb[:n], emb[n:]
+        if triplet:
+            loss, dists, _ = online_triplet_loss(
+                ea, ep, n_anchor=n, n_pos_per_anchor=(len(emb) - n) // n,
+                margin=margin, mode=mining)
+            return loss / size, dists
         # one process: all_gather is the identity and the offset 0
         return ntxent_loss(ea, ep, tau=tau,
                            gathered=(all_gather(ea), all_gather(ep)),

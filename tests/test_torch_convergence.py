@@ -2,7 +2,8 @@
 on the CPU: every stage (data, config, train, generate, evaluate) with
 ``--nogpu`` on a tiny corpus and tiny channels for one epoch, then a rerun
 that skips every stage; the guard against a changed ``--epochs``; the
-triplet recipe raises until it is ported."""
+triplet recipe (``--recipe now_playing``) with its mining mode and
+margin."""
 import glob
 import json
 import os
@@ -89,5 +90,38 @@ def test_changed_epochs_raise(tmp_path):
 
 
 def test_triplet_recipe_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        RC.main(["--root", str(tmp_path), "--recipe", "now_playing"])
+    """``--recipe now_playing`` is ported: its config is the now_playing
+    preset (Online-Triplet, bsz 120 with 24 anchors) with ``--mining_mode``
+    and ``--margin`` applied, and it trains (tiny width, 4 anchors x 2
+    replicas, on the device corpus); ``--stop_epoch 1`` of a 2-epoch
+    schedule stops after checkpoint 1. An unknown mining mode still raises,
+    at the command line."""
+    root = str(tmp_path)
+    with pytest.raises(SystemExit):
+        RC.main(["--root", root, "--recipe", "now_playing",
+                 "--mining_mode", "easy"])
+    tri = ["--recipe", "now_playing", "--mining_mode", "hardest",
+           "--margin", "0.3", "--epochs", "2"]
+    RC.main(["--root", root, "--stages", "data,config"] + ARGS + tri)
+    cfg_path = os.path.join(root, "config", "convtrip.yaml")
+    with open(cfg_path) as f:
+        derived = yaml.safe_load(f)
+    assert derived["LOSS"] == {**derived["LOSS"],
+                               "LOSS_MODE": "Online-Triplet",
+                               "MINING_MODE": "hardest", "MARGIN": 0.3}
+    assert (derived["BSZ"]["TR_BATCH_SZ"], derived["BSZ"]["TR_N_ANCHOR"]) \
+        == (120, 24)
+    cfg = _shrink(cfg_path)
+    cfg["BSZ"].update(TR_BATCH_SZ=12, TR_N_ANCHOR=4)
+    cfg["TRAIN"]["CHECKPOINT_INTERVAL"] = 1
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    RC.main(["--root", root, "--stages", "train", "--stop_epoch", "1"]
+            + ARGS + tri)
+    ck = f"{root}/logs/checkpoint/convtrip"
+    assert os.path.exists(f"{ck}/1/params.npz")
+    assert not os.path.exists(f"{ck}/2")
+    (run,) = glob.glob(f"{root}/logs/fit/convtrip/*/metrics.jsonl")
+    with open(run) as f:
+        m = {(r["tag"], r["step"]): r["value"] for r in map(json.loads, f)}
+    assert np.isfinite([m["loss/train", 1], m["loss/val", 1]]).all()

@@ -71,6 +71,10 @@ def _train_kw(root):
 CASES = {
     # bg, IR and speech on; batches 0, 1 and the last; an epoch reshuffle
     "train": (_train_kw, (0, 1, -1), 3),
+    # the now_playing layout: 4 replicas per anchor (bsz 120, 24 anchors
+    # scaled down), bg, IR and speech on
+    "train_4_per_anchor": (lambda r: {**_train_kw(r), "bsz": 10,
+                                      "n_anchor": 2}, (0, 1, -1), 2),
     # anchors only, a short last batch (the padding mask)
     "db_short_last": (lambda r: dict(
         fns_event_list=_music(r), bsz=16, n_anchor=16, duration=1.0,

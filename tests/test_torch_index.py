@@ -369,6 +369,46 @@ def test_ivfpq_decode_matches_jax(rng):
                                   np.asarray(want, np.float32))
 
 
+def test_ivfpq_decode_int8_matches_jax(pq_pair, tmp_path):
+    """``decode_int8``: the int8 books and their scale equal the JAX
+    package's byte for byte; the decoded chunk equals JAX's
+    ``_pq_decode_chunk_i8`` bit for bit (filler subtiles included) and is
+    not the f32 decode; a multi-chunk search returns JAX's ids with the
+    same store injected, also on a persisted store loaded with the flag
+    set after ``load`` (as the 100x protocol runner does)."""
+    db, cents, books, q = pq_pair
+    j, p = _pair(db, cents, books, nprobe=4, decode_int8=True)
+    j.add(db)
+    p.add(db, persist_path=str(tmp_path / "store.npz"))
+    jq, js = j._quantized_books()
+    pq, ps = p._quantized_books()
+    assert pq.dtype == torch.int8 and tuple(pq.shape) == books.shape
+    assert tuple(ps.shape) == (M, D // M) and ps.dtype == torch.float32
+    assert pq.numpy().tobytes() == np.asarray(jq).tobytes()
+    assert ps.numpy().tobytes() == np.asarray(js).tobytes()
+    assert p._quantized_books()[0] is pq                   # cached
+    got = p._decode_chunk(p.codes, p.sub_list)
+    want = J._pq_decode_chunk_i8(j.codes, j.sub_list, jq, js, j.centroids,
+                                 lt=j.LIST_TILE)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (p.n_pad, D)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+    f32 = P._pq_decode_chunk(p.codes, p.sub_list, p.codebooks, p.centroids,
+                             lt=p.LIST_TILE)
+    assert not torch.equal(got, f32)
+    kw = {"block": 16, "chunk_rows": 2 * P.IVFPQIndex.BLK}
+    jv, ji = j.search(q, 10, **kw)
+    pv, pi = p.search(q, 10, **kw)
+    np.testing.assert_array_equal(pi, ji)
+    ok = pi >= 0
+    np.testing.assert_allclose(pv[ok], jv[ok], rtol=RTOL, atol=ATOL)
+    loaded = P.IVFPQIndex.load(str(tmp_path / "store.npz"), nprobe=4,
+                               device=CPU)
+    assert not loaded.decode_int8
+    loaded.decode_int8 = True
+    np.testing.assert_array_equal(loaded.search(q, 10, **kw)[1], ji)
+
+
 def test_ivfpq_train_assignment_steps_do_not_matter(rng, monkeypatch):
     """train() assigns the resident training rows to lists in ASSIGN_ROWS
     steps: small steps give the same centroids and codebooks (k-means on

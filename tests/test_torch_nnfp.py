@@ -109,8 +109,10 @@ def test_get_fingerprinter_from_cfg():
     cfg["MODEL"].update(EMB_SZ=EMB, FRONT_HIDDEN_CH=list(SMALL_CH))
     m = tnnfp.get_fingerprinter(cfg)
     assert m.dtype == torch.bfloat16          # MIXED_PRECISION default
-    cfg["MODEL"]["ACT_STORE"] = "int8"
-    with pytest.raises(NotImplementedError, match="ACT_STORE"):
+    cfg["MODEL"]["ACT_STORE"] = "int8"            # ported: inference only
+    assert tnnfp.get_fingerprinter(cfg).act_store == "int8"
+    cfg["MODEL"]["ACT_STORE"] = "int4"
+    with pytest.raises(ValueError, match="ACT_STORE"):
         tnnfp.get_fingerprinter(cfg)
 
 
