@@ -242,11 +242,22 @@ TRIPLET_IDENTITY_MAX = (2 * 16 * 2.0 ** -24 + 1e-9) ** 0.5
 TRIPLET_NAME = "smoke_triplet"
 # ACT_STORE's fingerprints against bf16's over phase 3's corpus (the JAX
 # package's on a TPU v5e: int8 cosine min .9907 / mean .9946, fp8 .9799 /
-# .9887). The top-1 hits of its evaluate -i l2 against bf16's are printed,
-# not gated: phase 3's weights are random, its hits near chance, and a
-# perturbation of 1 % moves which of them hit (0.78 on the CPU rehearsal)
+# .9887); every memmap must differ from bf16's (an inactive store gives
+# bf16's bytes). The top-1 hits of its evaluate -i l2 against bf16's are
+# printed: phase 3's random-weight fingerprints lie so close together that
+# a 1 % perturbation moves which queries hit.
 ACT_COS_MIN = {"int8": 0.98, "fp8": 0.97}
 ACT_COS_MEAN = {"int8": 0.99, "fp8": 0.98}
+# ACT_STORE's top-1 against bf16's on the now_playing checkpoint's rows:
+# ACT_QUERIES noisy copies of its bf16 rows at each noise of ACT_NOISES (per
+# dimension), exact search (B1) over its bf16 rows and over its ACT_STORE
+# rows. The synthetic songs are stationary tones, so a song's segments are
+# near-duplicates (nearest-neighbour cosine 0.9997 on the card) while songs
+# lie apart (mean cosine 0.14): which segment comes first is not clear, the
+# song is. The top-1 row's song must equal bf16's on ACT_TOP1_MIN of the
+# queries at ACT_GATE_NOISE.
+ACT_QUERIES, ACT_NOISES, ACT_GATE_NOISE = 2048, (0.002, 0.01, 0.05), 0.01
+ACT_TOP1_MIN = 0.95
 # IVF-PQ's int8 decode: noisy-copy queries searched, and its top-1
 # agreement with the exact scan within this of the f32 decode's
 PQ_INT8_QUERIES, PQ_INT8_AGREE_SLACK = 2048, 0.01
@@ -2691,6 +2702,78 @@ def triplet_card_vs_cpu(dev):
     return worst
 
 
+def act_cosines(emb_dir, ref_dir):
+    """Row cosines of generate's memmaps in ``emb_dir`` with those in
+    ``ref_dir`` (dummy_db, db, query), and whether every memmap differs."""
+    import numpy as np
+    from nafp_tpu_torch.data.audio_io import load_memmap
+    cos, changed = [], True
+    for key in ("dummy_db", "db", "query"):
+        a = np.asarray(load_memmap(emb_dir, key, display=False)[0])
+        b = np.asarray(load_memmap(ref_dir, key, display=False)[0])
+        cos.append((a * b).sum(1))
+        changed = changed and not np.array_equal(a, b)
+    return np.concatenate(cos), changed
+
+
+def served_db(emb_dir, dummy_dir, n_db_songs, ref_db=None):
+    """The DB that evaluate searched: [dummy_db of ``dummy_dir`` (generated
+    rows, then random unit rows); db], with the generated rows those of
+    ``emb_dir``, whole songs of equal length (``n_db_songs`` in db).
+    Without ``ref_db``, also each row's song (-1 for a random row); with
+    it, ``ref_db`` with the generated rows replaced."""
+    import numpy as np
+    from nafp_tpu_torch.data.audio_io import load_memmap
+    gen = np.asarray(load_memmap(emb_dir, "dummy_db", display=False)[0])
+    db = np.asarray(load_memmap(emb_dir, "db", display=False)[0])
+    if ref_db is not None:
+        out = ref_db.copy()
+        out[:len(gen)] = gen
+        out[len(out) - len(db):] = db
+        return out
+    seg = len(db) // n_db_songs
+    if len(gen) % seg or len(db) != seg * n_db_songs:
+        raise AssertionError(f"{len(gen)} / {len(db)} rows are not songs "
+                             f"of {seg} segments")
+    pad = np.asarray(load_memmap(dummy_dir, "dummy_db", display=False)[0])
+    song = np.full(len(pad) + len(db), -1, np.int64)
+    song[:len(gen)] = np.arange(len(gen)) // seg
+    song[len(pad):] = (len(gen) + np.arange(len(db))) // seg
+    return np.concatenate([pad, db]), song
+
+
+def act_top1(dev, I, ref_db, db, song):
+    """Exact top-1 (B1 at these sizes) over ``db`` against over ``ref_db``
+    of ACT_QUERIES noisy copies of ref_db's song rows (``song`` >= 0) at
+    each noise of ACT_NOISES (per dimension, then unit norm): the share of
+    queries with the same top-1 row and with a top-1 row of the same song.
+    Also ref_db's song rows' nearest-neighbour cosine (5th / 50th / 95th
+    percentile) and mean cosine, over 4,096 of them."""
+    import numpy as np
+    rows = np.flatnonzero(song >= 0)
+    ref_i = I.FlatIndex(ref_db, metric="ip", device=dev)
+    got_i = I.FlatIndex(db, metric="ip", device=dev)
+    rng = np.random.default_rng(7)
+    out = {}
+    for noise in ACT_NOISES:
+        src = ref_db[rows[rng.integers(0, len(rows), ACT_QUERIES)]]
+        q = src + noise * rng.standard_normal(src.shape).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        _, i_ref = ref_i.search(q, 1)
+        _, i_got = got_i.search(q, 1)
+        s_ref, s_got = song[i_ref[:, 0]], song[i_got[:, 0]]
+        out[str(noise)] = dict(
+            same_row=float((i_got[:, 0] == i_ref[:, 0]).mean()),
+            same_song=float(((s_got == s_ref) & (s_ref >= 0)).mean()))
+    sub = ref_db[rows[rng.permutation(len(rows))[:4096]]]
+    _, nn = ref_i.search(sub, 2)
+    c = (sub * ref_db[nn[:, 1]]).sum(1)
+    out["nn_cos_pct_5_50_95"] = [float(v) for v in
+                                 np.percentile(c, [5, 50, 95])]
+    out["mean_cos"] = float((sub @ sub.T).mean())
+    return out
+
+
 def phase_triplet_tools(dev, main_path, ivfpq):
     """Phase 10: the Online-Triplet training path, ACT_STORE, IVF-PQ's int8
     decode and dataset2wav."""
@@ -2700,7 +2783,7 @@ def phase_triplet_tools(dev, main_path, ivfpq):
     import torch
     import yaml
     from nafp_tpu_torch.cli import main as cli
-    from nafp_tpu_torch.data.audio_io import load_memmap, load_wav_segment
+    from nafp_tpu_torch.data.audio_io import load_wav_segment
     from nafp_tpu_torch.data.catalog import Dataset
     from nafp_tpu_torch.extras import bench_quant, dataset2wav
     import nafp_tpu_torch.search.index as I
@@ -2783,6 +2866,8 @@ def phase_triplet_tools(dev, main_path, ivfpq):
     # ACT_STORE: generate --act_store over phase 3's corpus, against the
     # bf16 memmaps; evaluate -i l2 (B1) of each against bf16's top-1 hits
     n_sl = main_path["l2_top1"].shape[1]
+    ref3, song3 = served_db(main_path["emb_dir"], main_path["dummy_dir"],
+                            N_QUERY)
     act = {}
     for mode in ("int8", "fp8"):
         c = copy.deepcopy(main_path["cfg"])
@@ -2796,13 +2881,7 @@ def phase_triplet_tools(dev, main_path, ivfpq):
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         emb_dir = os.path.join(WORK, f"emb_{mode}", NAME, str(INDEX))
-        cos = []
-        for key in ("dummy_db", "db", "query"):
-            a = np.asarray(load_memmap(emb_dir, key, display=False)[0])
-            b = np.asarray(load_memmap(main_path["emb_dir"], key,
-                                       display=False)[0])
-            cos.append((a * b).sum(1))
-        cos = np.concatenate(cos)
+        cos, changed = act_cosines(emb_dir, main_path["emb_dir"])
         T.reset_launches()
         cli(["evaluate", NAME, str(INDEX), "-c", cpath, "-i", "l2", "-t",
              str(N_TEST), "--emb_dummy_dir", main_path["dummy_dir"]],
@@ -2810,18 +2889,64 @@ def phase_triplet_tools(dev, main_path, ivfpq):
         by_run[f"act_store {mode} l2"] = dict(T.LAUNCHES)
         raw = np.load(os.path.join(emb_dir, "raw_score.npy"))
         agree = float((raw[:, :n_sl] == main_path["l2_top1"]).mean())
+        with open(os.path.join(emb_dir, "eval_summary.json")) as f:
+            hits = json.load(f)["rates"]["top1_exact"]
+        T.reset_launches()
+        top1 = act_top1(dev, I, ref3, served_db(emb_dir, main_path[
+            "dummy_dir"], N_QUERY, ref_db=ref3), song3)
+        by_run[f"act_store {mode} phase-3 top-1 (API)"] = dict(T.LAUNCHES)
         act[mode] = dict(cos_min=float(cos.min()), cos_mean=float(cos.mean()),
-                         top1_agree=agree, generate_s=gen_s,
+                         changed=changed, top1_agree=agree, top1_hits=hits,
+                         generate_s=gen_s, top1=top1,
                          launches=by_run[f"act_store {mode} l2"])
         log(f"  generate --act_store {mode}: {len(cos)} fingerprints in "
             f"{gen_s:.1f} s, cosine with bf16 min {cos.min():.4f} / mean "
-            f"{cos.mean():.4f}; evaluate -i l2 top-1 hits equal to bf16's on "
-            f"{agree:.4f} of {N_TEST} ids x {n_sl} lengths, launches "
-            f"{by_run[f'act_store {mode} l2']}")
-        if not (cos.min() >= ACT_COS_MIN[mode]
+            f"{cos.mean():.4f}, every memmap changed: {changed}; evaluate -i "
+            f"l2 top-1 exact % {hits} (bf16 "
+            f"{main_path['rates']['l2']['top1_exact']}), its hits equal to "
+            f"bf16's on {agree:.4f} of {N_TEST} ids x {n_sl} lengths, "
+            f"launches {by_run[f'act_store {mode} l2']}; top-1 of noisy "
+            f"copies, by noise: {json.dumps(top1)}")
+        if not (changed and cos.min() < 1.0
+                and cos.min() >= ACT_COS_MIN[mode]
                 and cos.mean() >= ACT_COS_MEAN[mode]
                 and by_run[f"act_store {mode} l2"]["topk_ip"] > 0):
             raise AssertionError(f"ACT_STORE {mode}: {act[mode]}")
+
+    # ... and over the now_playing checkpoint: top-1 of exact search (B1)
+    # over its ACT_STORE rows against over its bf16 rows, where clear
+    tri_emb = os.path.join(WORK, "train_emb", TRIPLET_NAME, "1")
+    tri_dummy = os.path.join(WORK, "train_emb_dummy1")
+    ref_db, song = served_db(tri_emb, tri_dummy, TRAIN_QUERY)
+    for mode in ("int8", "fp8"):
+        c = copy.deepcopy(cfg)
+        c["DIR"]["OUTPUT_ROOT_DIR"] = f"{WORK}/train_emb_{mode}/"
+        cpath = os.path.join(WORK, f"triplet_{mode}.yaml")
+        with open(cpath, "w") as f:
+            yaml.safe_dump(c, f)
+        cli(["generate", TRIPLET_NAME, "1", "-c", cpath, "--yes",
+             "--act_store", mode], standalone_mode=False)
+        emb_dir = os.path.join(WORK, f"train_emb_{mode}", TRIPLET_NAME, "1")
+        cos, changed = act_cosines(emb_dir, tri_emb)
+        db = served_db(emb_dir, tri_dummy, TRAIN_QUERY, ref_db=ref_db)
+        T.reset_launches()
+        top1 = act_top1(dev, I, ref_db, db, song)
+        by_run[f"act_store {mode} now_playing top-1 (API)"] = dict(
+            T.LAUNCHES)
+        act[f"now_playing {mode}"] = dict(
+            cos_min=float(cos.min()), cos_mean=float(cos.mean()),
+            changed=changed, launches=dict(T.LAUNCHES), top1=top1)
+        log(f"  now_playing checkpoint, generate --act_store {mode}: cosine "
+            f"with bf16 min {cos.min():.4f} / mean {cos.mean():.4f}, every "
+            f"memmap changed: {changed}; top-1 of {ACT_QUERIES} noisy copies "
+            f"of its {int((song >= 0).sum())} bf16 song rows over the {mode} "
+            f"rows against over the bf16 rows, by noise: {json.dumps(top1)}; "
+            f"launches {dict(T.LAUNCHES)}")
+        if not (changed and cos.min() < 1.0
+                and top1[str(ACT_GATE_NOISE)]["same_song"] >= ACT_TOP1_MIN
+                and T.LAUNCHES["topk_ip"] > 0):
+            raise AssertionError(f"ACT_STORE {mode} on the now_playing "
+                                 f"checkpoint: {act[f'now_playing {mode}']}")
     act["bench_quant"] = bench_quant.main([])
     out["act_store"] = act
 

@@ -136,6 +136,22 @@ def stage_gen(root: str, n_dummy_songs: int, dummy_segs: int,
         json.dump(want, f)
 
 
+def stage_eval(root: str, index: str, nprobe: int, test_ids: str, device,
+               kmeans_seed: int = 0) -> dict:
+    """eval_fingerprints over ROOT's files; returns its summary. The
+    ivf-sq8 store of k-means seed 0 is persisted in ROOT/ivf-sq8_store.npz
+    (and ``sq8`` scans it); another seed builds its store without
+    persisting it, leaving that file alone."""
+    from nafp_tpu_torch.search.evaluate import eval_fingerprints
+    cache = (os.path.join(root, "ivf-sq8_store.npz")
+             if index in ("ivf-sq8", "sq8") and kmeans_seed == 0 else None)
+    eval_fingerprints(root, emb_dummy_dir=root, index_type=index,
+                      test_ids=test_ids, nprobe=nprobe, index_cache=cache,
+                      device=device, kmeans_seed=kmeans_seed)
+    with open(os.path.join(root, "eval_summary.json")) as f:
+        return json.load(f)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.join(RUN_ROOT,
@@ -165,15 +181,8 @@ def main(argv=None) -> dict:
 
     line = {}
     if "eval" in stages:
-        from nafp_tpu_torch.search.evaluate import eval_fingerprints
-        cache = (os.path.join(args.root, "ivf-sq8_store.npz")
-                 if args.index in ("ivf-sq8", "sq8") else None)
-        eval_fingerprints(
-            args.root, emb_dummy_dir=args.root, index_type=args.index,
-            test_ids=args.test_ids, nprobe=args.nprobe, index_cache=cache,
-            device=dev)
-        with open(os.path.join(args.root, "eval_summary.json")) as f:
-            summary = json.load(f)
+        summary = stage_eval(args.root, args.index, args.nprobe,
+                             args.test_ids, dev)
         line = {"protocol": "100x-sequence", "alpha": args.alpha,
                 "noise": args.noise, **summary}
         with open(os.path.join(args.root, "results.jsonl"), "a") as f:

@@ -93,10 +93,11 @@ def sh(args, root: str) -> float:
     return secs
 
 
-def train_until(args, root: str, marker: str, poll_s: float = 2.0) -> None:
+def train_until(args, root: str, marker: str, poll_s: float = 0.05) -> None:
     """Run the train command until ``marker`` (a checkpoint's meta.json,
     which appears with the whole checkpoint: the trainer renames it into
-    place) exists, then stop it."""
+    place) exists, then stop it. The poll is far shorter than an epoch, so
+    the next epoch's checkpoint is never reached."""
     print(f"+ {' '.join(args)} (until {marker})", flush=True)
     t0 = time.perf_counter()
     proc = subprocess.Popen(args, cwd=root, env=_env())

@@ -19,7 +19,7 @@ count and memory, and the free disk of ``--root``:
               and 96, then sq8 on the same store file.
   seeds       torch_100x_sequence_seeds.json: the sequence corpus's
               ivf-sq8 at nprobe 40, its k-means trained with each of
-              ``--seeds`` (the spread of top-1 over the k-means draws).
+              SEEDS (the spread of top-1 over the k-means draws).
   suite       SEARCH_BENCH_torch.json: ``bench_search --suite`` (2 M rows,
               hnsw at ``--hnsw_n``).
   bench       torch_bench.json: ``bench.py`` at batch 1024, 512 and 2048.
@@ -36,7 +36,7 @@ as a RAM disk.
 Usage:
     python -m nafp_tpu_torch.extras.run_full_scale --root DIR
         [--stages host,protocol,...] [--out DIR] [--n 53600000]
-        [--songs 100000] [--seeds 0,1,2] [--clean] [--recon_dir DIR]
+        [--songs 100000] [--clean] [--recon_dir DIR]
 """
 from __future__ import annotations
 
@@ -52,6 +52,8 @@ import torch
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # H100 SXM dense peaks and HBM3 rate (NVIDIA's data sheet): the bounds
 PEAK_TF32, PEAK_BF16, PEAK_BYTES = 495e12, 989e12, 3.35e12
+# the seeds stage's k-means seeds
+SEEDS = (0, 1, 2)
 
 
 def sh(*cmd: str) -> str:
@@ -175,17 +177,23 @@ def kernel_times(root: str) -> dict:
     return out
 
 
-def stage_sequence(root: str, songs: int, recon_dir=None) -> dict:
-    """``recon_dir``: where evaluate's merged recon (27.5 GB at 100k
-    songs) is written, through a symlink in ``root`` (a RAM disk, for a
-    host whose disk cannot take the DB, the recon and the store)."""
-    from nafp_tpu_torch.extras import run_100x_sequence as S
+def link_recon(root: str, recon_dir=None) -> None:
+    """Put evaluate's merged recon in ``recon_dir``, through a symlink in
+    ``root``."""
     if recon_dir:
         os.makedirs(recon_dir, exist_ok=True)
         os.makedirs(root, exist_ok=True)
         link = os.path.join(root, "merged_recon.mm")
         if not os.path.lexists(link):
             os.symlink(os.path.join(recon_dir, "merged_recon.mm"), link)
+
+
+def stage_sequence(root: str, songs: int, recon_dir=None) -> dict:
+    """``recon_dir``: where evaluate's merged recon (27.5 GB at 100k
+    songs) is written, through a symlink in ``root`` (a RAM disk, for a
+    host whose disk cannot take the DB, the recon and the store)."""
+    from nafp_tpu_torch.extras import run_100x_sequence as S
+    link_recon(root, recon_dir)
     base = ["--root", root, "--n_dummy_songs", str(songs)]
     runs = []
     for extra in (["--index", "ivf-sq8", "--nprobe", "40"],
@@ -201,41 +209,20 @@ def stage_sequence(root: str, songs: int, recon_dir=None) -> dict:
     return {"runs": runs}
 
 
-def stage_seeds(root: str, songs: int, seeds, recon_dir=None) -> dict:
-    """The sequence runner's ivf-sq8 at nprobe 40 with the k-means of
-    ``IVFSQ8Index.train`` seeded by each of ``seeds`` (0 is the runner's
-    own): the store is built and persisted here, and the runner's
-    evaluate loads it."""
-    from nafp_tpu_torch.data.audio_io import load_memmap
+def stage_seeds(root: str, songs: int, recon_dir=None) -> dict:
+    """The sequence runner's ivf-sq8 at nprobe 40 with its k-means seeded
+    by each of SEEDS (0 is the runner's own, and reuses its store)."""
     from nafp_tpu_torch.extras import run_100x_sequence as S
-    from nafp_tpu_torch.search.evaluate import _merged_recon
-    from nafp_tpu_torch.search.index import IVFSQ8Index
-    if recon_dir:
-        os.makedirs(recon_dir, exist_ok=True)
-        os.makedirs(root, exist_ok=True)
-        link = os.path.join(root, "merged_recon.mm")
-        if not os.path.lexists(link):
-            os.symlink(os.path.join(recon_dir, "merged_recon.mm"), link)
-    base = ["--root", root, "--n_dummy_songs", str(songs)]
-    S.main(base + ["--stages", "gen"])
-    db = load_memmap(root, "db", display=False)[0]
-    full = _merged_recon(root, load_memmap(root, "dummy_db",
-                                           display=False)[0], db)
-    cache = os.path.join(root, "ivf-sq8_store.npz")
+    link_recon(root, recon_dir)
+    S.main(["--root", root, "--n_dummy_songs", str(songs), "--stages",
+            "gen"])
     runs = []
-    for seed in seeds:
+    for seed in SEEDS:
         t0 = time.perf_counter()
-        idx = IVFSQ8Index(d=128, nprobe=40, device="cuda:0")
-        idx.train(full, seed=seed)
-        idx.add(full, persist_path=cache)
-        build_s = time.perf_counter() - t0
-        del idx
-        torch.cuda.empty_cache()
-        res, launches = counted(S.main, base + ["--index", "ivf-sq8",
-                                                "--nprobe", "40", "--stages",
-                                                "eval"])
-        os.remove(cache)
-        runs.append({"seed": seed, "build_s": round(build_s, 1),
+        res, launches = counted(S.stage_eval, root, "ivf-sq8", 40, "icassp",
+                                "cuda:0", seed)
+        runs.append({"seed": seed, "wall_s": round(time.perf_counter() - t0,
+                                                   1),
                      "launches": launches, **res})
         print(json.dumps(runs[-1]), flush=True)
     top1 = [r["rates"]["top1_exact"][0] for r in runs]
@@ -253,8 +240,6 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=53_600_000)
     ap.add_argument("--songs", type=int, default=100_000)
     ap.add_argument("--hnsw_n", type=int, default=500_000)
-    ap.add_argument("--seeds", default="0,1,2",
-                    help="seeds stage: the k-means seeds")
     ap.add_argument("--clean", action="store_true")
     ap.add_argument("--recon_dir", default=None,
                     help="sequence stage: put the merged recon there "
@@ -293,9 +278,8 @@ def main(argv=None) -> None:
                    "nafp_seq100x")
         elif stage == "seeds":
             record("torch_100x_sequence_seeds.json",
-                   lambda p: stage_seeds(p, args.songs, [
-                       int(x) for x in args.seeds.split(",")],
-                       args.recon_dir), "nafp_seq100x")
+                   lambda p: stage_seeds(p, args.songs, args.recon_dir),
+                   "nafp_seq100x")
         elif stage == "suite":
             record("SEARCH_BENCH_torch.json", lambda p: bench_search.main(
                 ["--suite", "--root", p, "--hnsw_n", str(args.hnsw_n),

@@ -197,7 +197,8 @@ def eval_fingerprints(emb_dir: str,
                       seed: int = 42,
                       index_cache: Optional[str] = None,
                       ef_search: int = 64,
-                      device: DeviceLike = None) -> np.ndarray:
+                      device: DeviceLike = None,
+                      kmeans_seed: int = 0) -> np.ndarray:
     """Run the full search experiment; returns the hit-rate matrix
     (4, n_seq_len) in percent and writes raw_score.npy / test_ids.npy /
     eval_summary.json into ``emb_dir``.
@@ -209,7 +210,8 @@ def eval_fingerprints(emb_dir: str,
     sq8-flat, ivf-sq8 and the sharded twins), loaded when present and
     written after a fresh build. ``max_train``: rows the trained indexes
     learn from; ``nprobe``: lists the IVF indexes probe; ``ef_search``:
-    hnsw's beam."""
+    hnsw's beam; ``kmeans_seed``: the k-means seed of the trained indexes
+    (``seed`` draws the test ids)."""
     device = resolve_device(device)
     cache_cls, load_kwargs = cacheable_cls(index_type, nprobe)  # fail fast
     seq_lens = np.asarray(list(map(int, str(test_seq_len).split())))
@@ -236,7 +238,8 @@ def eval_fingerprints(emb_dir: str,
             print(f"loaded persisted {index_type} store {index_cache}")
     if index is None:
         index = get_index(index_type, full_db, max_train=max_train,
-                          nprobe=nprobe, ef_search=ef_search, device=device)
+                          nprobe=nprobe, ef_search=ef_search, device=device,
+                          seed=kmeans_seed)
         if hasattr(index, "add") and index.ntotal == 0:
             if index_cache and cache_cls is not None:
                 index.add(full_db, persist_path=index_cache)

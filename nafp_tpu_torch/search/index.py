@@ -986,7 +986,8 @@ def cacheable_cls(index_type: str, nprobe: int = 40):
 
 def get_index(index_type: str, train_data: np.ndarray,
               max_train: int = int(1e7), nprobe: int = 40,
-              ef_search: int = 64, device: DeviceLike = None):
+              ef_search: int = 64, device: DeviceLike = None,
+              seed: int = 0):
     """Index factory (counterpart of get_index, get_index_faiss.py:10-121).
 
     'l2'/'ip' exact f32; 'ivf' maps to the exact index (as in the JAX
@@ -998,7 +999,8 @@ def get_index(index_type: str, train_data: np.ndarray,
     query-time beam), like the reference's CPU-only
     ``faiss.IndexHNSWFlat``. 'l2-sharded', 'sq8-sharded' and
     'ivf-sq8-sharded' split the rows over every local card (one CPU shard
-    for a CPU ``device``; ``search/sharded.py``)."""
+    for a CPU ``device``; ``search/sharded.py``). ``seed`` seeds the
+    k-means of the trained types."""
     t = index_type.lower()
     d = train_data.shape[1]
     if t in ("l2", "ip", "ivf"):
@@ -1010,7 +1012,7 @@ def get_index(index_type: str, train_data: np.ndarray,
         m = 64 if d % 64 == 0 else max(d // 2, 1)
         idx = IVFPQIndex(d=d, nlist=256, m=m, nbits=8, nprobe=nprobe,
                          refine=(t == "ivfpq-rr"), device=device)
-        idx.train(train_data, max_train=max_train)
+        idx.train(train_data, max_train=max_train, seed=seed)
         return idx
     if t in ("sq8", "sq8-flat"):
         return SQ8FlatIndex(d=d, device=device)
@@ -1019,7 +1021,7 @@ def get_index(index_type: str, train_data: np.ndarray,
     sq8_cap = None if max_train >= int(1e7) else max_train
     if t == "ivf-sq8":
         idx = IVFSQ8Index(d=d, nprobe=nprobe, device=device)
-        idx.train(train_data, max_train=sq8_cap)
+        idx.train(train_data, max_train=sq8_cap, seed=seed)
         return idx
     if t == "sq8-sharded":
         from nafp_tpu_torch.search.sharded import ShardedSQ8FlatIndex
@@ -1027,7 +1029,7 @@ def get_index(index_type: str, train_data: np.ndarray,
     if t == "ivf-sq8-sharded":
         from nafp_tpu_torch.search.sharded import ShardedIVFSQ8Index
         idx = ShardedIVFSQ8Index(d=d, nprobe=nprobe, device=device)
-        idx.train(train_data, max_train=sq8_cap)
+        idx.train(train_data, max_train=sq8_cap, seed=seed)
         return idx
     if t == "l2-sharded":
         from nafp_tpu_torch.search.sharded import ShardedFlatIndex

@@ -31,6 +31,7 @@ from nafp_tpu.configuration import load_config
 from nafp_tpu.models import nnfp as J
 from nafp_tpu_torch.models import nnfp as P
 from nafp_tpu_torch.models.convert import save_params_npz, torch_to_flax
+from test_torch_convergence import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL_CH = [8, 8, 16, 16, 32, 32, 64, 64]
@@ -150,8 +151,8 @@ def test_conv_layers_store_jax_codes(mode):
     for i, layer in enumerate(m.conv_layers):
         jl = J.ConvLayer(hidden_ch=layer.conv_1x3.weight.shape[0],
                          strides=J.DEFAULT_STRIDES[i], act_store=mode)
-        want = jl.apply({"params": variables["params"][f"conv_layer_{i}"]},
-                        x)
+        want = jax.jit(jl.apply)(
+            {"params": variables["params"][f"conv_layer_{i}"]}, x)
         xin = torch.from_numpy(np.array(
             J._decompress_act(x, mode, jnp.float32))).permute(0, 3, 1, 2)
         if i > 0:       # the stored input, as the previous layer left it
@@ -205,7 +206,7 @@ def test_act_store_is_inference_only(mode):
         assert not torch.equal(q(x), plain(x))
 
 
-def test_cli_generate_act_store(tmp_path):
+def test_cli_generate_act_store(tmp_path, one_thread):
     """``generate --act_store int8|fp8 --nogpu`` with a port-written
     checkpoint: the memmaps have the plain run's shapes, and each
     fingerprint's cosine with the plain run's (bf16, the default
@@ -251,7 +252,7 @@ def test_cli_generate_act_store(tmp_path):
             assert not np.array_equal(embs[mode][k], ref)
 
 
-def test_bench_quant_cpu_prints_the_jax_keys(tmp_path, capsys):
+def test_bench_quant_cpu_prints_the_jax_keys(tmp_path, capsys, one_thread):
     import yaml
     from nafp_tpu_torch.extras import bench_quant
     cfg = _cfg(None, mixed=True)

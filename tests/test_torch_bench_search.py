@@ -18,6 +18,7 @@ from nafp_tpu.search import index as JI
 from nafp_tpu_torch import bench_search as PB
 from nafp_tpu_torch.extras import run_100x_protocol as PP
 from nafp_tpu_torch.search import index as PI
+from test_torch_convergence import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -159,7 +160,7 @@ def test_sq8_reuses_a_jax_ivfsq8_store(roots, JP, injected_centroids,
                                   jidx.search(q, 20)[1])
 
 
-def test_pq_decode_int8_raises(tmp_path):
+def test_pq_decode_int8_raises(tmp_path, one_thread):
     """``--pq_decode int8`` is ported: the ivfpq build decodes from int8
     codebooks, on a fresh store and on the persisted one, where the flag
     is set after ``load`` (the JAX script's order); what still raises is

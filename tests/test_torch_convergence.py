@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from nafp_tpu_torch.extras import run_convergence as RC
@@ -88,8 +89,19 @@ def test_changed_epochs_raise(tmp_path):
     with pytest.raises(ValueError, match="MAX_EPOCH"):
         RC.main(["--root", root, "--stages", "config", "--epochs", "4"])
 
+@pytest.fixture
+def one_thread(monkeypatch):
+    """torch on one thread for the test (and OMP_NUM_THREADS 1 for the
+    processes it starts): many small ops on a CPU shared by several test
+    workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    yield
+    torch.set_num_threads(threads)
 
-def test_triplet_recipe_raises(tmp_path):
+
+def test_triplet_recipe_raises(tmp_path, one_thread):
     """``--recipe now_playing`` is ported: its config is the now_playing
     preset (Online-Triplet, bsz 120 with 24 anchors) with ``--mining_mode``
     and ``--margin`` applied, and it trains (tiny width, 4 anchors x 2

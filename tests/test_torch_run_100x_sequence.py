@@ -10,9 +10,11 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import nafp_tpu.search.evaluate as JE
 from nafp_tpu_torch.extras import run_100x_sequence as PS
+from test_torch_convergence import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = ("dummy_db.mm", "dummy_db_shape.npy", "db.mm", "db_shape.npy",
@@ -104,3 +106,31 @@ def test_eval_sq8_raw_score_equals_jax(roots, tmp_path):
     assert line["device"] == "cpu" and line["index_type"] == "sq8"
     for tag in ("jax", "torch"):
         assert os.path.exists(os.path.join(dirs[tag], "ivf-sq8_store.npz"))
+
+
+def test_eval_kmeans_seed_leaves_the_runner_store_alone(roots, tmp_path,
+                                                      one_thread):
+    """``stage_eval``: k-means seed 0 persists the runner's ivf-sq8 store;
+    another seed trains its own k-means (``get_index(seed=)``) and neither
+    reads nor rewrites that file."""
+    from nafp_tpu_torch.search.index import IVFSQ8Index, get_index
+    d = str(tmp_path)
+    for name in FILES:
+        shutil.copy(os.path.join(roots["torch"], name), d)
+    store = os.path.join(d, "ivf-sq8_store.npz")
+    s0 = PS.stage_eval(d, "ivf-sq8", 8, "16", "cpu")
+    with open(store, "rb") as f:
+        before = f.read()
+    s1 = PS.stage_eval(d, "ivf-sq8", 8, "16", "cpu", kmeans_seed=1)
+    with open(store, "rb") as f:
+        assert f.read() == before
+    assert s0["n_test"] == s1["n_test"] == 16
+    assert s0["index_type"] == s1["index_type"] == "ivf-sq8"
+    db = np.array(np.memmap(os.path.join(d, "db.mm"), np.float32,
+                            "r")).reshape(-1, 128)
+    ref = IVFSQ8Index(d=128, nprobe=8, device="cpu")
+    ref.train(db, seed=1)
+    got = get_index("ivf-sq8", db, nprobe=8, device="cpu", seed=1)
+    assert torch.equal(got.centroids, ref.centroids)
+    assert not torch.equal(got.centroids, get_index(
+        "ivf-sq8", db, nprobe=8, device="cpu").centroids)

@@ -18,6 +18,7 @@ the CPU, at a tiny width (channels (8, 8, 16, 16, 32, 32, 64, 64), EMB_SZ
 ``cli train`` of the now_playing preset runs in tests/test_torch_
 convergence.py (``--recipe now_playing``).
 """
+import functools
 import os
 import socket
 import subprocess
@@ -28,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from nafp_tpu.losses.triplet import online_triplet_loss as jax_triplet
 from nafp_tpu_torch.losses.triplet import EPS, online_triplet_loss
@@ -312,18 +314,30 @@ def test_triplet_training_loop_tracks_jax_step_by_step(corpus, tmp_path):
 WORKER = r"""
 import os, sys
 sys.path.insert(0, os.environ["NAFP_REPO"])
-sys.path.insert(0, os.path.join(os.environ["NAFP_REPO"], "tests"))
 import numpy as np
 import torch
+import yaml
 torch.set_num_threads(2)
 from nafp_tpu_torch.parallel.mesh import maybe_init_distributed, world
+from nafp_tpu_torch.train import trainer as T
 assert maybe_init_distributed(None, "cpu")
 rank, size = world()
-from test_torch_triplet import port_steps
-out = sys.argv[1]
+out, lr = sys.argv[1], float(sys.argv[2])
+with open(os.path.join(out, "cfg.yaml")) as f:
+    cfg = yaml.safe_load(f)
 batch = dict(np.load(os.path.join(out, "batch.npz")))
-share = {k: np.split(v, size)[rank] for k, v in batch.items()}
-np.savez(os.path.join(out, f"rank{rank}.npz"), **port_steps(share))
+share = {k: torch.from_numpy(np.split(v, size)[rank])
+         for k, v in batch.items()}
+# one SGD step from seeded weights on this rank's share
+mel, spec, model, _ = T.build_fp(cfg, seed=4)
+opt = torch.optim.SGD(model.parameters(), lr=lr)
+step = T.TrainStep(cfg, model, opt, lambda s: lr,
+                   T._make_loss_fn(cfg, mel, spec, model, train=True,
+                                   aug_keys=frozenset()),
+                   torch.device("cpu"))
+res = {"loss0": step(share)[0].numpy()}
+res.update({f"state/{n}": v.numpy() for n, v in model.state_dict().items()})
+np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
 torch.distributed.destroy_process_group()
 """
 
@@ -335,25 +349,6 @@ def rank_cfg():
                        n_anchor=N_RANKS * RANK_ANCHORS)
     cfg["SPEC_AUG"]["SPECAUG_CHAIN"] = []
     return cfg
-
-
-def port_steps(batch, steps=2):
-    """Two port train steps (SGD at SGD_LR) from seeded weights on
-    ``batch`` (this rank's share under a process group): the losses and
-    the parameters after the steps."""
-    from nafp_tpu_torch.train import trainer as T
-    cfg = rank_cfg()
-    mel, spec, model, _ = T.build_fp(cfg, seed=4)
-    opt = torch.optim.SGD(model.parameters(), lr=SGD_LR)
-    step = T.TrainStep(cfg, model, opt, lambda s: SGD_LR,
-                       T._make_loss_fn(cfg, mel, spec, model, train=True,
-                                       aug_keys=frozenset()),
-                       torch.device("cpu"))
-    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    out = {f"loss{i}": step(tb)[0].numpy() for i in range(steps)}
-    out.update({f"state/{n}": v.numpy()
-                for n, v in model.state_dict().items()})
-    return out
 
 
 def _rank_batch(rng, n_ranks=N_RANKS):
@@ -368,24 +363,36 @@ def _rank_batch(rng, n_ranks=N_RANKS):
             "replicas": song(n_ranks * RANK_ANCHORS * RANK_PPA)}
 
 
-def _jax_sharded(cfg, variables, batch, lr, steps):
+@functools.lru_cache(maxsize=None)
+def _jax_sharded_step():
+    """The JAX sharded step of rank_cfg() on an N_RANKS-device mesh, with
+    SGD's rate a hyperparameter of its state: compiled once for every
+    rate this file steps at."""
     import optax
     from nafp_tpu.models import nnfp
     from nafp_tpu.ops.melspec import get_melspec_fn
     from nafp_tpu.ops.specaug import get_specaug_fn
     from nafp_tpu.parallel.mesh import make_data_mesh
     from nafp_tpu.train import trainer as JT
-    from nafp_tpu_torch.models.convert import flax_to_torch
+    cfg = rank_cfg()
     mel, _ = get_melspec_fn(cfg)
     model = nnfp.FingerPrinter(norm="layer_norm2d", dtype=jnp.float32,
                                emb_sz=16, front_hidden_ch=tuple(
                                    cfg["MODEL"]["FRONT_HIDDEN_CH"]))
     mesh = make_data_mesh(N_RANKS)
-    opt = optax.sgd(lr)
-    state = JT.TrainState(variables, opt.init(
-        {"params": variables["params"]}), jnp.zeros([], jnp.int32))
+    opt = optax.inject_hyperparams(optax.sgd)(learning_rate=SGD_LR)
     step = JT.make_train_step(cfg, mel, get_specaug_fn(cfg), model, opt,
                               mesh, aug_keys=frozenset())
+    return step, opt, mesh
+
+
+def _jax_sharded(variables, batch, lr, steps):
+    from nafp_tpu.train import trainer as JT
+    from nafp_tpu_torch.models.convert import flax_to_torch
+    step, opt, mesh = _jax_sharded_step()
+    opt_state = opt.init({"params": variables["params"]})
+    opt_state.hyperparams["learning_rate"] = jnp.asarray(lr, jnp.float32)
+    state = JT.TrainState(variables, opt_state, jnp.zeros([], jnp.int32))
     db = JT._device_batch(batch, mesh)
     losses = []
     for i in range(steps):
@@ -423,11 +430,11 @@ def test_jax_sharded_triplet_gradient_factor():
                                    cfg["MODEL"]["FRONT_HIDDEN_CH"]))
     loss_fn = JT._make_loss_fn(cfg, mel, get_specaug_fn(cfg), model,
                                train=True, aug_keys=frozenset())
-    g = jax.grad(lambda p: loss_fn(p, {k: jnp.asarray(v) for k, v in
-                                       half.items()},
-                                   jax.random.PRNGKey(0), None)[0])(
+    g = jax.jit(jax.grad(lambda p: loss_fn(
+        p, {k: jnp.asarray(v) for k, v in half.items()},
+        jax.random.PRNGKey(0), None)[0]))(
         {"params": variables["params"]})["params"]
-    _, moved = _jax_sharded(cfg, variables, batch, 1.0, 1)
+    _, moved = _jax_sharded(variables, batch, 1.0, 1)
     from nafp_tpu_torch.models.convert import flax_to_torch
     before = flax_to_torch({"params": p0})
     grads = flax_to_torch({"params": jax.tree_util.tree_map(np.asarray, g)})
@@ -447,6 +454,8 @@ def two_ranks(tmp_path_factory):
     script = os.path.join(out, "worker.py")
     with open(script, "w") as f:
         f.write(WORKER)
+    with open(os.path.join(out, "cfg.yaml"), "w") as f:
+        yaml.safe_dump(rank_cfg(), f)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -457,11 +466,11 @@ def two_ranks(tmp_path_factory):
                    NAFP_NUM_PROCESSES=str(N_RANKS), NAFP_PROCESS_ID=str(rank),
                    OMP_NUM_THREADS="2")
         procs.append(subprocess.Popen(
-            [sys.executable, script, out], env=env, cwd=REPO,
+            [sys.executable, script, out, str(SGD_LR)], env=env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     cfg = rank_cfg()
-    jax_ref = _jax_sharded(cfg, _jax_variables(cfg), batch,
-                           SGD_LR / JAX_PMEAN_GRAD_FACTOR, 2)
+    jax_ref = _jax_sharded(_jax_variables(cfg), batch,
+                           SGD_LR / JAX_PMEAN_GRAD_FACTOR, 1)
     logs = []
     for p in procs:
         try:
@@ -480,15 +489,15 @@ def two_ranks(tmp_path_factory):
 def test_two_ranks_equal_the_jax_sharded_triplet_step(two_ranks):
     """Each rank mines its own rows with no gather, and its loss is its
     share of the mean (JAX's pmean): the ranks agree bit for bit, and
-    with the JAX sharded step at its measured factor the loss is within
-    1e-4 relative and each parameter within 1e-3 of the size of its two
-    steps (the tolerances of tests/test_torch_multiprocess.py)."""
+    with one JAX sharded step at its measured factor the loss is within
+    1e-4 relative and each parameter within 1e-3 of the size of its step
+    (the tolerances of tests/test_torch_multiprocess.py)."""
     ranks, (losses, state) = two_ranks
     for key in ranks[0]:
         np.testing.assert_array_equal(ranks[0][key], ranks[1][key],
                                       err_msg=key)
     got = ranks[0]
-    for i in range(2):
+    for i in range(len(losses)):
         assert losses[i] > 0
         np.testing.assert_allclose(got[f"loss{i}"], losses[i], rtol=1e-4)
     from nafp_tpu_torch.train import trainer as T
