@@ -25,7 +25,7 @@ Package layout
 - ``optim``    — LAMB, the learning-rate schedules, optimizer selection
 - ``train``    — the trainer and its checkpoint/metrics helper
 - ``parallel`` — devices of a data-parallel pass, process groups, collectives
-- ``utils``    — profiling and step timing
+- ``utils``    — profiling, and the spans and counters the profiler records
 - ``search``   — top-k kernels, indexes (sharded ones too), sequence
                  re-ranking, evaluation, the in-training mini-search
 - ``csrc``     — CUDA C++ sources of the kernels (built with nvcc at first use)

@@ -32,12 +32,14 @@ from __future__ import annotations
 import math
 import queue
 import threading
+import time
 from typing import Dict, Sequence
 
 import numpy as np
 
 from nafp_tpu_torch.data.audio_io import load_wav_segment, wav_info
 from nafp_tpu_torch.native import load_segments_native
+from nafp_tpu_torch.utils.profiling import count, span
 
 # Longest impulse response the time-domain augmentation convolves with
 # (the JAX package keeps it in ops/tdaug.py; a test holds the two equal).
@@ -337,14 +339,21 @@ def prefetch(loader: SegmentLoader, n_prefetch: int = 2):
 
     Worker exceptions are re-raised in the consumer — a decode failure must
     crash the run, not silently truncate the stream (which would leave
-    zero rows in generated fingerprint memmaps)."""
+    zero rows in generated fingerprint memmaps).
+
+    Traced (``utils.profiling``): the consumer's wait is the span
+    ``loader.wait``; the worker, whose thread the profiler does not
+    record, times each ``loader[i]`` and hands the seconds over with the
+    batch, and the consumer adds them to the counter ``loader.decode_s``."""
     q: "queue.Queue" = queue.Queue(maxsize=n_prefetch)
     stop = object()
 
     def worker():
         try:
             for i in range(len(loader)):
-                q.put(loader[i])
+                t0 = time.perf_counter()
+                batch = loader[i]
+                q.put((batch, time.perf_counter() - t0))
             q.put(stop)
         except BaseException as e:  # propagate to consumer
             q.put(e)
@@ -352,9 +361,12 @@ def prefetch(loader: SegmentLoader, n_prefetch: int = 2):
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("loader.wait"):
+            item = q.get()
         if item is stop:
             break
         if isinstance(item, BaseException):
             raise item
-        yield item
+        batch, decode_s = item
+        count("loader.decode_s", decode_s)
+        yield batch

@@ -56,6 +56,7 @@ from nafp_tpu_torch.models.nnfp import get_fingerprinter
 from nafp_tpu_torch.ops.melspec import get_melspec_fn, melspectrogram_parts
 from nafp_tpu_torch.ops.tdaug import augment_replicas
 from nafp_tpu_torch.parallel.mesh import data_devices
+from nafp_tpu_torch.utils.profiling import span
 
 
 def load_params(cfg: Dict[str, Any], checkpoint_name: str,
@@ -107,54 +108,62 @@ def generate_fingerprint(cfg: Dict[str, Any],
     """Write the fingerprint memmaps; returns the output directory.
     ``device`` defaults to ``cuda:0`` (raises when no card is present);
     the pass runs over ``data_devices(cfg, device)``."""
-    device = resolve_device(device)
-    devices = data_devices(cfg, device)
-    device = devices[0]
-    melspec_fn, mcfg = get_melspec_fn(cfg)
-    variables, checkpoint_index = load_params(cfg, checkpoint_name,
-                                              checkpoint_index)
-    models = [build_model(cfg, variables, device)]
-    if len(devices) > 1:
-        print(f"[generate] fingerprint pass over {len(devices)} devices: "
-              f"{', '.join(map(str, devices))}")
-        models += [build_model(cfg, variables, d) for d in devices[1:]]
+    with span("generate.setup"):
+        device = resolve_device(device)
+        devices = data_devices(cfg, device)
+        device = devices[0]
+        melspec_fn, mcfg = get_melspec_fn(cfg)
+        with span("generate.load_model"):
+            variables, checkpoint_index = load_params(cfg, checkpoint_name,
+                                                      checkpoint_index)
+            models = [build_model(cfg, variables, device)]
+            if len(devices) > 1:
+                print(f"[generate] fingerprint pass over {len(devices)} "
+                      f"devices: {', '.join(map(str, devices))}")
+                models += [build_model(cfg, variables, d)
+                           for d in devices[1:]]
 
-    def fingerprint(x: torch.Tensor) -> torch.Tensor:
-        if len(devices) == 1:
-            return models[0](melspec_fn(x))
-        pad = (-x.shape[0]) % len(devices)
-        if pad:
-            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-        parts = [c.to(d) for c, d in zip(x.chunk(len(devices)), devices)]
-        feats = melspectrogram_parts(parts, mcfg)
-        embs = [m(f) for m, f in zip(models, feats)]   # all launched first
-        return torch.cat([e.to(device) for e in embs])
+        def fingerprint(x: torch.Tensor) -> torch.Tensor:
+            if len(devices) == 1:
+                return models[0](melspec_fn(x))
+            pad = (-x.shape[0]) % len(devices)
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            parts = [c.to(d)
+                     for c, d in zip(x.chunk(len(devices)), devices)]
+            feats = melspectrogram_parts(parts, mcfg)
+            embs = [m(f) for m, f in zip(models, feats)]  # all launched first
+            return torch.cat([e.to(device) for e in embs])
 
-    dataset = Dataset(cfg)
-    ds = get_data_source(cfg, dataset, source_root_dir, skip_dummy)
-    # DEVICE.DEVICE_CORPUS: each source that fits the budget is resident on
-    # the card and its batches are gathered there (data/device_corpus.py)
-    ds = {k: maybe_device_loader(v, cfg, label=k, device=device)
-          for k, v in ds.items()}
+        dataset = Dataset(cfg)
+        ds = get_data_source(cfg, dataset, source_root_dir, skip_dummy)
+        # DEVICE.DEVICE_CORPUS: each source that fits the budget is resident
+        # on the card and its batches are gathered there
+        # (data/device_corpus.py)
+        ds = {k: maybe_device_loader(v, cfg, label=k, device=device)
+              for k, v in ds.items()}
 
-    out_root = output_root_dir or cfg["DIR"]["OUTPUT_ROOT_DIR"]
-    out_dir = os.path.join(out_root, checkpoint_name, str(checkpoint_index))
-    os.makedirs(out_dir, exist_ok=True)
-    if not skip_dummy and not source_root_dir and not assume_yes:
-        prevent_overwrite("dummy_db", os.path.join(out_dir, "dummy_db.mm"))
+        out_root = output_root_dir or cfg["DIR"]["OUTPUT_ROOT_DIR"]
+        out_dir = os.path.join(out_root, checkpoint_name,
+                               str(checkpoint_index))
+        os.makedirs(out_dir, exist_ok=True)
+        if not skip_dummy and not source_root_dir and not assume_yes:
+            prevent_overwrite("dummy_db",
+                              os.path.join(out_dir, "dummy_db.mm"))
 
-    snr = tuple(cfg["TD_AUG"]["TS_SNR"])
-    use_bg = bool(cfg["TD_AUG"]["TS_BG_AUG"])
-    use_ir = bool(cfg["TD_AUG"]["TS_IR_AUG"])
+        snr = tuple(cfg["TD_AUG"]["TS_SNR"])
+        use_bg = bool(cfg["TD_AUG"]["TS_BG_AUG"])
+        use_ir = bool(cfg["TD_AUG"]["TS_IR_AUG"])
 
-    def to_dev(batch, key):
-        if key not in batch:
-            return None
-        x = batch[key]
-        return x if torch.is_tensor(x) else torch.from_numpy(x).to(device)
+        def to_dev(batch, key):
+            if key not in batch:
+                return None
+            x = batch[key]
+            return (x if torch.is_tensor(x)
+                    else torch.from_numpy(x).to(device))
 
-    dim = int(cfg["MODEL"]["EMB_SZ"])
-    sz_check = {}
+        dim = int(cfg["MODEL"]["EMB_SZ"])
+        sz_check = {}
     for key, loader in ds.items():
         synth = loader.reduce_batch_first_half  # 'unseen_syn' query loader
         n_rep = max(1, loader.n_pos_per_anchor) if synth else 1
@@ -177,7 +186,9 @@ def generate_fingerprint(cfg: Dict[str, Any],
                     x = to_dev(batch, "anchors")
                 emb = fingerprint(x)
                 n_valid = int(batch["n_valid"]) * n_rep
-                arr[row:row + n_valid] = emb[:n_valid].float().cpu().numpy()
+                with span("generate.wait"):
+                    rows = emb[:n_valid].float().cpu()
+                arr[row:row + n_valid] = rows.numpy()
                 row += n_valid
         arr.flush()
         del arr

@@ -21,6 +21,7 @@ from nafp_tpu_torch.device import (DeviceLike, chunked_device_put,
                                    resolve_device)
 from nafp_tpu_torch.search.topk import (NEG, topk_ip, topk_ip_masked,
                                         topk_ip_sq8, topk_low_index)
+from nafp_tpu_torch.utils.profiling import span, spanned
 
 # ---------------------------------------------------------------------------
 # Exact flat index
@@ -92,6 +93,7 @@ class FlatIndex:
             return False
         return self.metric == "ip" or self._unit_norm
 
+    @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 2048) -> Tuple[np.ndarray, np.ndarray]:
         q = np.asarray(q, np.float32)
@@ -109,7 +111,8 @@ class FlatIndex:
             qt = torch.from_numpy(np.ascontiguousarray(blk)).to(self.device)
             if use_kernel:
                 d, ids = topk_ip(qt, self.db, k)
-                d, ids = d.cpu().numpy(), ids.cpu().numpy()
+                with span("index.wait"):
+                    d, ids = d.cpu().numpy(), ids.cpu().numpy()
                 if self.metric == "l2":
                     # IP -> L2^2 on the k-sized result (host gather)
                     q_sq = np.einsum("nd,nd->n", blk, blk)
@@ -117,7 +120,9 @@ class FlatIndex:
                          + self._db_sq_host[np.maximum(ids, 0)] - 2.0 * d)
             else:
                 d, ids = self._search_block(qt, k)
-                d, ids = d.cpu().numpy(), ids.cpu().numpy().astype(np.int32)
+                with span("index.wait"):
+                    d, ids = d.cpu().numpy(), ids.cpu().numpy().astype(
+                        np.int32)
             n = len(blk) - pad
             outs_d.append(d[:n])
             outs_i.append(ids[:n])
@@ -214,6 +219,7 @@ class SQ8FlatIndex:
         idx._publish(*_pad_sq8_store(q8, scales, ids, cls.BLK))
         return idx
 
+    @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 1024) -> Tuple[np.ndarray, np.ndarray]:
         q = np.asarray(q, np.float32)
@@ -229,8 +235,9 @@ class SQ8FlatIndex:
             v, pos = topk_ip_sq8(qt, self.vecs8, self.scales, self.rmask, k)
             ids = torch.where(pos < 0, -1, self.ids[pos.clamp(min=0).long()])
             n = len(blk) - pad
-            outs_d.append(v[:n].cpu().numpy())
-            outs_i.append(ids[:n].cpu().numpy())
+            with span("index.wait"):
+                outs_d.append(v[:n].cpu().numpy())
+                outs_i.append(ids[:n].cpu().numpy())
         if not outs_d:
             return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
         return np.concatenate(outs_d), np.concatenate(outs_i)
@@ -586,6 +593,7 @@ class IVFPQIndex:
             torch.from_numpy(sub_idx).to(self.device), lt=lt)
         return c, i, s, n_pad * lt
 
+    @spanned("index.search")
     def search(self, q: np.ndarray, k: int, block: int = 512,
                chunk_rows: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -625,7 +633,9 @@ class IVFPQIndex:
             for b in blocks:
                 probed |= _pq_probed_lists(b["bias"])
             needed = _pq_sub_needed(probed, self.sub_list)
-            if needed.float().mean().item() <= self.PRUNE_COVERAGE:
+            with span("index.wait"):
+                coverage = needed.float().mean().item()
+            if coverage <= self.PRUNE_COVERAGE:
                 codes_v, ids_v, sub_v, n_scan = self._gather_pruned(
                     needed.cpu().numpy(), lt)
         for cs in range(0, n_scan, chunk):
@@ -645,8 +655,9 @@ class IVFPQIndex:
             else:
                 best_v, best_i = best_v[:, :k], best_i[:, :k]
             n = best_v.shape[0] - b["pad"]
-            outs_d.append(best_v[:n].cpu().numpy())
-            outs_i.append(best_i[:n].cpu().numpy())
+            with span("index.wait"):
+                outs_d.append(best_v[:n].cpu().numpy())
+                outs_i.append(best_i[:n].cpu().numpy())
         if not outs_d:
             return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
         return np.concatenate(outs_d), np.concatenate(outs_i)
@@ -873,6 +884,7 @@ class IVFSQ8Index:
         idx._trained = True
         return idx
 
+    @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 64) -> Tuple[np.ndarray, np.ndarray]:
         q = np.asarray(q, np.float32)
@@ -890,8 +902,9 @@ class IVFSQ8Index:
                 self.ids, k=k, nprobe=self.nprobe, cap=self.list_cap,
                 score_bytes=self.SCORE_BYTES)
             n = len(blk) - pad
-            outs_d.append(d[:n].cpu().numpy())
-            outs_i.append(ids[:n].cpu().numpy())
+            with span("index.wait"):
+                outs_d.append(d[:n].cpu().numpy())
+                outs_i.append(ids[:n].cpu().numpy())
         if not outs_d:
             return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
         return np.concatenate(outs_d), np.concatenate(outs_i)

@@ -42,6 +42,7 @@ from nafp_tpu_torch.search.index import (NEG, FlatIndex, IVFSQ8Index,
                                          _assign_int8_block, _pad_sq8_store,
                                          _quantize_sq8_host, _sq8_probe_scan)
 from nafp_tpu_torch.search.topk import topk_ip, topk_ip_sq8, topk_low_index
+from nafp_tpu_torch.utils.profiling import span, spanned
 
 Devices = Optional[Sequence[DeviceLike]]
 
@@ -111,6 +112,7 @@ class ShardedFlatIndex:
             return min(block, 512)
         return min(s._xla_block_cap(block) for s in self.shards)
 
+    @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 2048) -> Tuple[np.ndarray, np.ndarray]:
         q = np.asarray(q, np.float32)
@@ -127,8 +129,9 @@ class ShardedFlatIndex:
                 gid = torch.where(pos < 0, -1, pos.long() + off)
                 parts.append((v, gid))
             v, i = _merge(parts, k)
-            outs_d.append(v[:n].cpu().numpy())
-            outs_i.append(i[:n].to(torch.int32).cpu().numpy())
+            with span("index.wait"):
+                outs_d.append(v[:n].cpu().numpy())
+                outs_i.append(i[:n].to(torch.int32).cpu().numpy())
         return _concat(outs_d, outs_i, k)
 
 
@@ -193,6 +196,7 @@ class ShardedSQ8FlatIndex:
         idx._publish(q8, scales, ids)
         return idx
 
+    @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 1024) -> Tuple[np.ndarray, np.ndarray]:
         q = np.asarray(q, np.float32)
@@ -209,8 +213,9 @@ class ShardedSQ8FlatIndex:
                 parts.append((v, gid))
             v, i = _merge(parts, k)
             i = torch.where(i >= 0, i, -1)
-            outs_d.append(v[:n].cpu().numpy())
-            outs_i.append(i[:n].cpu().numpy())
+            with span("index.wait"):
+                outs_d.append(v[:n].cpu().numpy())
+                outs_i.append(i[:n].cpu().numpy())
         return _concat(outs_d, outs_i, k)
 
 
@@ -320,6 +325,7 @@ class ShardedIVFSQ8Index(IVFSQ8Index):
                                  int(z["list_cap"]))
         return idx
 
+    @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 64) -> Tuple[np.ndarray, np.ndarray]:
         q = np.asarray(q, np.float32)
@@ -341,6 +347,7 @@ class ShardedIVFSQ8Index(IVFSQ8Index):
                 parts.append((v, bi.gather(1, sel)))
             v, i = _merge(parts, k)
             i = torch.where(torch.isfinite(v), i, -1).to(torch.int32)
-            outs_d.append(v[:n].cpu().numpy())
-            outs_i.append(i[:n].cpu().numpy())
+            with span("index.wait"):
+                outs_d.append(v[:n].cpu().numpy())
+                outs_i.append(i[:n].cpu().numpy())
         return _concat(outs_d, outs_i, k)

@@ -71,7 +71,7 @@ from nafp_tpu_torch.parallel.mesh import (all_gather, all_reduce_,
                                           world)
 from nafp_tpu_torch.search.minisearch import mini_search_eval
 from nafp_tpu_torch.train.experiment import ExperimentHelper
-from nafp_tpu_torch.utils.profiling import StepTimer, trace
+from nafp_tpu_torch.utils.profiling import span, trace
 
 INIT_SEED = 42       # the JAX package's init_params key
 BATCH_KEYS = ("anchors", "replicas", "bg", "ir", "speech")
@@ -171,29 +171,33 @@ def _make_loss_fn(cfg, melspec_fn, specaug_fn, model: FingerPrinter,
             k for k in ("bg", "ir", "speech") if k in batch)
         draws = draws or {}
         xa = batch["anchors"]
-        xp = augment_replicas(batch["replicas"], batch.get("bg"),
-                              batch.get("ir"), gen, snr,
-                              use_bg=use_bg and "bg" in have,
-                              use_ir=use_ir and "ir" in have,
-                              speech=batch.get("speech"),
-                              use_speech=use_speech and "speech" in have,
-                              **draws.get("td", {}))
+        on_card = xa.is_cuda
         rank, size = world()
-        feat = melspec_fn(torch.cat([xa, xp], dim=0), across_ranks=size > 1)
-        if train:
-            feat = specaug_fn(feat, gen, draws=draws.get("spec"))
-        emb = model(feat)
-        n = xa.shape[0]
-        ea, ep = emb[:n], emb[n:]
-        if triplet:
-            loss, dists, _ = online_triplet_loss(
-                ea, ep, n_anchor=n, n_pos_per_anchor=(len(emb) - n) // n,
-                margin=margin, mode=mining)
-            return loss / size, dists
-        # one process: all_gather is the identity and the offset 0
-        return ntxent_loss(ea, ep, tau=tau,
-                           gathered=(all_gather(ea), all_gather(ep)),
-                           offset=rank * n)
+        with span("train.augment", device=on_card):
+            xp = augment_replicas(batch["replicas"], batch.get("bg"),
+                                  batch.get("ir"), gen, snr,
+                                  use_bg=use_bg and "bg" in have,
+                                  use_ir=use_ir and "ir" in have,
+                                  speech=batch.get("speech"),
+                                  use_speech=use_speech and "speech" in have,
+                                  **draws.get("td", {}))
+            feat = melspec_fn(torch.cat([xa, xp], dim=0),
+                              across_ranks=size > 1)
+            if train:
+                feat = specaug_fn(feat, gen, draws=draws.get("spec"))
+        with span("train.forward", device=on_card):
+            emb = model(feat)
+            n = xa.shape[0]
+            ea, ep = emb[:n], emb[n:]
+            if triplet:
+                loss, dists, _ = online_triplet_loss(
+                    ea, ep, n_anchor=n, n_pos_per_anchor=(len(emb) - n) // n,
+                    margin=margin, mode=mining)
+                return loss / size, dists
+            # one process: all_gather is the identity and the offset 0
+            return ntxent_loss(ea, ep, tau=tau,
+                               gathered=(all_gather(ea), all_gather(ep)),
+                               offset=rank * n)
 
     return loss_fn
 
@@ -221,10 +225,12 @@ class TrainStep:
         for g in self.optimizer.param_groups:
             g["lr"] = self.schedule(self.step)
         loss, sim = self.loss_fn(batch, self.gen, draws)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        all_reduce_grads(self.model.parameters())
-        self.optimizer.step()
+        with span("train.backward", device=loss.is_cuda):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            all_reduce_grads(self.model.parameters())
+        with span("train.optimizer", device=loss.is_cuda):
+            self.optimizer.step()
         self.step += 1
         loss = loss.detach()
         if world()[1] > 1:
@@ -387,26 +393,31 @@ def trainer(cfg: Dict[str, Any], checkpoint_name: str,
         t_ep = time.perf_counter()
         train_ds.set_epoch(ep)
         losses, sim = [], None
-        timer = StepTimer()
         with (trace(profile_dir) if profile_dir and ep == helper.epoch
               and lead else contextlib.nullcontext()):
+            t_loop = time.perf_counter()
             for i, batch in enumerate(prefetch(train_ds)):
                 if i >= steps_per_epoch:
                     break
                 loss, sim = train_step(upload(batch))
                 losses.append(loss)
-                timer.tick()
                 if i % 50 == 0 and lead:
+                    mean_ms = 1e3 * (time.perf_counter() - t_loop) / (i + 1)
                     print(f"  step {i}/{steps_per_epoch} tr_loss "
-                          f"{float(loss):.4f} step {timer.step_ms:.0f} ms",
+                          f"{float(loss):.4f} step {mean_ms:.0f} ms",
                           end="\r")
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            loop_s = time.perf_counter() - t_loop
         tr_loss = (float(torch.stack(losses).mean()) if losses
                    else float("nan"))
         helper.log_scalar("loss/train", tr_loss, ep)
-        if timer.ema_dt:
+        if losses:
+            # the epoch's step loop as a whole, ended by a synchronise
             helper.log_scalar("throughput/segments_per_sec",
-                              timer.items_per_sec(train_ds.bsz * size), ep)
-            helper.log_scalar("throughput/step_ms", timer.step_ms, ep)
+                              len(losses) * train_ds.bsz * size / loop_s, ep)
+            helper.log_scalar("throughput/step_ms",
+                              1e3 * loop_s / len(losses), ep)
         if save_img and sim is not None:
             helper.log_sim_images("tr_sim_mtx", sim.cpu().numpy(), ep)
 

@@ -379,17 +379,42 @@ def test_process_shard_round_robin(monkeypatch):
     assert shards == [items[0::3], items[1::3], items[2::3]]
 
 
-def test_trace_writes_a_chrome_trace(tmp_path):
-    from nafp_tpu_torch.utils.profiling import StepTimer, trace
-    with trace(str(tmp_path)):
+def test_trace_writes_a_chrome_trace(corpus, tmp_path):
+    """``trace`` writes a Chrome trace; under ``TRAIN.PROFILE_DIR`` the
+    trainer's first epoch is traced, the trace holds the port's spans of
+    the train step's phases and of its loader, and the epoch's throughput
+    is the step loop's plain totals: segments over the loop's seconds, and
+    the loop's seconds a step."""
+    from nafp_tpu_torch.train.trainer import trainer
+    from nafp_tpu_torch.utils.profiling import trace
+    with trace(str(tmp_path / "plain")):
         torch.ones(8).sum()
-    (path,) = glob.glob(str(tmp_path / "trace_*.json"))
+    (path,) = glob.glob(str(tmp_path / "plain" / "trace_*.json"))
     with open(path) as f:
         assert "traceEvents" in json.load(f)
-    timer = StepTimer()
-    for _ in range(3):
-        timer.tick()
-    assert timer.step_ms >= 0 and timer.items_per_sec(120) > 0
+
+    root, _ = corpus
+    cfg = _cfg(root=root)
+    cfg["DIR"]["LOG_ROOT_DIR"] = f"{tmp_path}/logs/"
+    cfg["TRAIN"].update(PROFILE_DIR=str(tmp_path / "prof"),
+                        MINI_TEST_IN_TRAIN=False)
+    trainer(cfg, "traced", device="cpu")
+    (path,) = glob.glob(str(tmp_path / "prof" / "trace_*.json"))
+    with open(path) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    steps = names.count("train.optimizer")
+    assert steps == 7                  # 4 songs x 7 segments / 4 anchors
+    for phase in ("train.augment", "train.forward", "train.backward"):
+        assert names.count(phase) == steps, phase
+    assert names.count("loader.wait") >= steps
+    (run,) = glob.glob(f"{tmp_path}/logs/fit/traced/*/metrics.jsonl")
+    with open(run) as f:
+        logged = {m["tag"]: m["value"] for m in map(json.loads, f)}
+    rate = logged["throughput/segments_per_sec"]
+    step_ms = logged["throughput/step_ms"]
+    assert rate > 0 and step_ms > 0
+    # one loop's totals: segments a step = rate x seconds a step
+    assert rate * step_ms / 1e3 == pytest.approx(cfg["BSZ"]["TR_BATCH_SZ"])
 
 
 def test_more_than_one_process_raises(monkeypatch):
