@@ -17,7 +17,12 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    one-call PyTorch yardstick (matmul + topk, which the port never calls),
    at k 20 and k 80 for B1, B2 and B3; B4a and B4b also at B2's shape beside
    B2, with their yardsticks there, and v2 against B2 at k 80; each
-   launch's shared memory, CTAs per SM, registers and grid;
+   launch's shared memory, CTAs per SM, registers and grid; LayerNorm2d's
+   kernel pair (``ops/layernorm2d.py``) against its plain version at the
+   encoder's 16 norms, batch 640 and 125, bf16 and f32, forward and
+   backward, timed at batch 640 beside its byte bound, the plain version
+   and the library yardstick (``F.elu`` + ``F.layer_norm`` in f32), and its
+   launches in ``640_lamb`` train steps (one a norm each way);
 3. the serving path through the CLI at full model width (random weights
    from a seed, written in the Flax layout as ``params.npz``): a seeded
    synthetic corpus -> ``generate`` -> a 619,500-row DB (the 10k-song
@@ -246,6 +251,17 @@ TRIPLET_NAME = "smoke_triplet"
 # bf16's bytes). The top-1 hits of its evaluate -i l2 against bf16's are
 # printed: phase 3's random-weight fingerprints lie so close together that
 # a 1 % perturbation moves which queries hit.
+# LayerNorm2d's kernel pair against its plain version (phase 2): batch 640
+# (the train step) and 125 (generate); y within 1 bf16 ulp (the f32
+# statistics differ in their last bits) and dx within 2 (rounded twice:
+# after the f32 gradient and after ELU's derivative), f32 y within 1e-5 and
+# dx within 1e-4 of the largest |value| (their sums over up to 524,288
+# elements run in other orders); dgamma and dbeta within 1e-4 of the sum of
+# |terms| of an f64 sum (an f32 sum over up to 640 samples)
+LN2D_ROWS = (640, 125)
+LN2D_Y_GAP = {"torch.bfloat16": 1.0, "torch.float32": 1e-5}
+LN2D_DX_GAP = {"torch.bfloat16": 2.0, "torch.float32": 1e-4}
+LN2D_PARAM_GAP = 1e-4
 ACT_COS_MIN = {"int8": 0.98, "fp8": 0.97}
 ACT_COS_MEAN = {"int8": 0.99, "fp8": 0.98}
 # ACT_STORE's top-1 against bf16's on the now_playing checkpoint's rows:
@@ -932,6 +948,198 @@ def phase_kernel_b3(dev, gen):
         residency=residency,
         shape=f"Bq 512, N {n_pad} (bf16), d 128, k {K}; 40 of 256 lists "
               "probed")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, LayerNorm2d: the kernel pair against its plain version
+# ---------------------------------------------------------------------------
+def bf16_ulp_gap(got, want):
+    """The largest |got - want| in bf16 ulps of the larger of |got|, |want|
+    and 1e-3 of the largest |want| (below that, the last bits of the f32
+    statistics can move a value by more than its own ulp)."""
+    import torch
+    got, want = got.double(), want.double()
+    scale = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                          1e-3 * want.abs().max())
+    ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(1e-30))) - 7)
+    return float(((got - want).abs() / ulp).max())
+
+
+def ln2d_gaps(x, gamma, beta, dy):
+    """Kernel against plain, forward and backward, at one input: y and dx
+    (bf16: in ulps, ``bf16_ulp_gap``; f32: over the largest |plain|), and
+    dgamma and dbeta against an f64 sum over the batch, over the sum of the
+    absolute terms; then a second run, which must equal the first bit for
+    bit."""
+    import torch
+    import torch.nn.functional as F
+    from nafp_tpu_torch.ops import layernorm2d as L
+
+    def run(fn):
+        xs, g, b = (t.detach().clone().requires_grad_(True)
+                    for t in (x, gamma, beta))
+        y = fn(xs, g, b, 1e-3)
+        y.backward(dy)
+        return y.detach(), xs.grad, g.grad, b.grad
+
+    got, again, want = run(L.layer_norm2d), run(L.layer_norm2d), \
+        run(L.layer_norm2d_plain)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"LayerNorm2d {tuple(x.shape)}: two runs differ")
+    if x.dtype == torch.bfloat16:
+        gap = [bf16_ulp_gap(got[i], want[i]) for i in (0, 1)]
+    else:
+        gap = [float((got[i] - want[i]).abs().max() / want[i].abs().max())
+               for i in (0, 1)]
+    v = F.elu(x).double()
+    mean = v.mean((1, 2, 3), keepdim=True)
+    xh = (v - mean) / torch.sqrt((v - mean).square().mean(
+        (1, 2, 3), keepdim=True) + 1e-3)
+    for k, terms in ((2, dy.double() * xh), (3, dy.double())):
+        gap.append(float(((got[k].double() - terms.sum(0)).abs()
+                          / terms.abs().sum(0).clamp_min(1e-30)).max()))
+        del terms
+    return gap
+
+
+def ln2d_timings(x, gamma, beta, iters):
+    """ms of the kernels' forward and backward (called directly), of the
+    plain version and of the library yardstick (F.elu + F.layer_norm in
+    f32, which the port never calls), each backward as forward + backward
+    less forward."""
+    import torch
+    import torch.nn.functional as F
+    from nafp_tpu_torch.ops import layernorm2d as L
+
+    shape = tuple(x.shape[1:])
+
+    def library(xs, g, b, eps):
+        return F.layer_norm(F.elu(xs).float(), shape, g, b, eps).to(xs.dtype)
+
+    y, mean, rstd, g_mem = L._forward(x, gamma, beta, 1e-3)
+    dy = torch.randn_like(y)
+    out = dict(ms=time_ms(lambda: L._forward(x, gamma, beta, 1e-3), iters),
+               bwd_ms=time_ms(lambda: L._backward(dy, x, g_mem, mean, rstd),
+                              iters))
+    xg, gg, bg = (t.detach().clone().requires_grad_(True)
+                  for t in (x, gamma, beta))
+    for tag, fn in (("plain", L.layer_norm2d_plain), ("library", library)):
+        with torch.no_grad():
+            f = time_ms(lambda: fn(x, gamma, beta, 1e-3), iters)
+        def fwd_bwd():
+            xg.grad = gg.grad = bg.grad = None
+            fn(xg, gg, bg, 1e-3).backward(dy)
+        fb = time_ms(fwd_bwd, iters)
+        out[f"{tag}_ms"], out[f"{tag}_bwd_ms"] = f, fb - f
+    return out
+
+
+def ln2d_elu_check(dev):
+    """The kernels' bf16 ELU table against F.elu at every bf16 value from -16
+    to 16 (and -100, the most negative finite value, -inf): one sample
+    through the kernels, whose backward with dy = 1 returns
+    dgamma = (v - mean)·rstd as computed, reproduced bit for bit from
+    F.elu's v and the kernels' mean and rstd."""
+    import torch
+    import torch.nn.functional as F
+    from nafp_tpu_torch.ops import layernorm2d as L
+    pos = torch.arange(0, 0x4181, dtype=torch.int16).view(torch.bfloat16)
+    x = torch.cat([pos, -pos, torch.tensor(
+        [-100.0, -3.3895e38, float("-inf")], dtype=torch.bfloat16)])
+    x = torch.cat([x, x.new_zeros(-len(x) % 64)]).view(1, 1, 1, -1).to(dev)
+    gamma = torch.ones(x.shape[1:], device=dev)
+    _, mean, rstd, g_mem = L._forward(x, gamma, torch.zeros_like(gamma), 1e-3)
+    _, dgamma, _ = L._backward(torch.ones_like(x), x, g_mem, mean, rstd)
+    want = (F.elu(x).float() - mean) * rstd
+    bad = int((dgamma.view(-1) != want.view(-1)).sum())
+    if bad:
+        raise AssertionError(f"LayerNorm2d's bf16 ELU differs from F.elu at "
+                             f"{bad} of {x.numel()} values")
+    log(f"  LayerNorm2d's bf16 ELU equals F.elu at all {x.numel()} values")
+
+
+def phase_layernorm2d(dev):
+    """LayerNorm2d's kernel pair against its plain version at the
+    encoder's 16 norms, at batch 640 (the train step) and 125 (generate),
+    in bf16 and f32, x channels last as the encoder holds it, after the
+    bf16 ELU table against F.elu at every bf16 value: y and dx
+    within LN2D_Y_GAP / LN2D_DX_GAP, dgamma and dbeta within
+    LN2D_PARAM_GAP of an f64 sum, two runs bit for bit. Then, at batch
+    640 in bf16, each norm timed forward and backward against the byte
+    bound (4 and 6 bytes an element), the plain version and the library
+    yardstick; and one 640_lamb train step launches the pair once a norm
+    each way (bench_train_step, 2 steps after its warm-up)."""
+    import torch
+    from nafp_tpu_torch.configuration import load_config
+    from nafp_tpu_torch.extras import bench_train_step
+    from nafp_tpu_torch.models import nnfp
+    from nafp_tpu_torch.ops import layernorm2d as L
+
+    ln2d_elu_check(dev)
+    model = nnfp.get_fingerprinter(load_config("640_lamb"))
+    shapes = [tuple(m.gamma.shape) for m in model.modules()
+              if isinstance(m, nnfp.LayerNorm2d)]
+    del model
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = {}
+    for rows in LN2D_ROWS:
+        for dt in (torch.bfloat16, torch.float32):
+            for shape in shapes:
+                x = torch.randn((rows, *shape), generator=gen, device=dev
+                                ).to(dt).contiguous(
+                                    memory_format=torch.channels_last)
+                dy = torch.randn(x.shape, generator=gen, device=dev).to(
+                    dt).contiguous(memory_format=torch.channels_last)
+                gamma = 1 + 0.3 * torch.randn(shape, generator=gen,
+                                              device=dev)
+                beta = 0.2 * torch.randn(shape, generator=gen, device=dev)
+                gap = ln2d_gaps(x, gamma, beta, dy)
+                key = f"{rows} {str(dt)[6:]}"
+                worst[key] = [max(a, b) for a, b in
+                              zip(worst.get(key, gap), gap)]
+                lim = LN2D_Y_GAP[str(dt)], LN2D_DX_GAP[str(dt)], \
+                    LN2D_PARAM_GAP, LN2D_PARAM_GAP
+                if any(g > m for g, m in zip(gap, lim)):
+                    raise AssertionError(f"LayerNorm2d B {rows} {shape} {dt}: "
+                                         f"y, dx, dgamma, dbeta gaps {gap}, "
+                                         f"limits {lim}")
+                del x, dy
+    for key, gap in worst.items():
+        log(f"  LayerNorm2d B {key}: worst y {gap[0]:.3g}, dx {gap[1]:.3g}, "
+            f"dgamma {gap[2]:.3g}, dbeta {gap[3]:.3g}")
+    rows, per_shape = LN2D_ROWS[0], []
+    for shape in shapes:
+        x = torch.randn((rows, *shape), generator=gen, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        gamma = 1 + 0.3 * torch.randn(shape, generator=gen, device=dev)
+        beta = 0.2 * torch.randn(shape, generator=gen, device=dev)
+        n = x.numel()
+        t = ln2d_timings(x, gamma, beta, 20 if n > (1 << 26) else 50)
+        t.update(shape=shape, bound_ms=4 * n / PEAK_BYTES * 1e3,
+                 bwd_bound_ms=6 * n / PEAK_BYTES * 1e3)
+        per_shape.append(t)
+        log(f"  LayerNorm2d B {rows} x {shape} bf16: fwd {t['ms']:.4f} / "
+            f"bwd {t['bwd_ms']:.4f} ms (bound {t['bound_ms']:.4f} / "
+            f"{t['bwd_bound_ms']:.4f}; plain {t['plain_ms']:.3f} / "
+            f"{t['plain_bwd_ms']:.3f}; library {t['library_ms']:.3f} / "
+            f"{t['library_bwd_ms']:.3f})")
+        del x
+    step = {k: sum(t[k] for t in per_shape) for k in (
+        "ms", "bwd_ms", "bound_ms", "bwd_bound_ms", "plain_ms",
+        "plain_bwd_ms", "library_ms", "library_bwd_ms")}
+    log(f"  LayerNorm2d, the 16 norms of a batch-640 step: " + json.dumps(
+        {k: round(v, 4) for k, v in step.items()}))
+    L.reset_launches()
+    res = bench_train_step.main(["-c", "640_lamb", "--steps", "2"])
+    torch.cuda.synchronize()
+    want = 3 * len(shapes)                  # the warm-up step and 2 more
+    if L.LAUNCHES != {"layer_norm2d": want, "layer_norm2d_backward": want}:
+        raise AssertionError(f"640_lamb steps launched {L.LAUNCHES}, "
+                             f"expected {want} each way")
+    log(f"  640_lamb: 3 steps launched {dict(L.LAUNCHES)}; step "
+        f"{res['step_ms']} ms")
+    return dict(worst_gaps=worst, layer1=per_shape[0], step=step,
+                train_step_ms=res["step_ms"], launches=dict(L.LAUNCHES))
 
 
 # ---------------------------------------------------------------------------
@@ -3070,6 +3278,7 @@ def main() -> int:
 
     log("[2/10] kernels against their plain versions")
     rec = timed("kernels", phase_kernels, dev)
+    ln2d = timed("LayerNorm2d", phase_layernorm2d, dev)
     log("[3/10] serving path through the CLI (full width)")
     main_path = timed("main path", phase_main_path, dev)
     ivf_sq8 = timed("IVF-SQ8", phase_ivf_sq8, dev, main_path)
@@ -3132,12 +3341,27 @@ def main() -> int:
         b2_above_floor_bench=bench["selection_share"],
         residency_bench=bench["residency"], residency=rec["b4"]["residency"],
         main_shape_library_ms=rec["b4"]["main_shape_library_ms"]))
+    # ms at layer 1 (batch 640, bf16, channels last) and summed over the
+    # 16 norms of a step; gaps of y and dx in bf16 ulps (bf16) or over the
+    # largest |plain| (f32), of dgamma and dbeta over an f64 sum's |terms|
+    kernels_line.append(dict(
+        name="LayerNorm2d", route="cuda",
+        source="nafp_tpu_torch/csrc/layernorm2d.cu",
+        replaces="none (XLA fusion)",
+        **{k: v for k, v in ln2d["layer1"].items() if k != "shape"},
+        shape=f"B {LN2D_ROWS[0]} x {tuple(ln2d['layer1']['shape'])} bf16, "
+              "channels last (layer 1)",
+        step=ln2d["step"],
+        max_abs_err={key: dict(zip(("y", "dx", "dgamma", "dbeta"), gap))
+                     for key, gap in ln2d["worst_gaps"].items()},
+        launches=ln2d["launches"], launches_run="640_lamb, 3 steps"))
     for r in kernels_line:
         r["max_err"] = r["max_abs_err"]
     summary = {k: v for k, v in main_path.items()
                if k not in ("cfg", "variables", "cfg_path", "dummy_dir",
                             "emb_dir", "l2_top1", "data", "raw")}
     summary.update(enc, training=training, sharded=sharded, triplet=triplet,
+                   layernorm2d=ln2d,
                    ivf_sq8={k: v for k, v in ivf_sq8.items()
                             if k not in ("raw", "store")},
                    measurement=measurement,

@@ -163,7 +163,7 @@ def run_variant(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"scale_mode={scale_mode!r}: one of {SCALE_MODES}")
     n, d = vecs8.shape
     _check_blk(n, blk)
-    if T._all_on_cpu(q, vecs8, scales, rmask):
+    if kernels.all_on_cpu(q, vecs8, scales, rmask):
         return run_variant_plain(q, vecs8, scales, rmask, k, int8_dot)
     bq = q.shape[0]
     T._check_d(d, 16 if int8_dot else 4)
@@ -191,7 +191,7 @@ def run_dotonly(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
     vecs8 (N, d) int8; ``scales`` and ``rmask`` are taken for the
     reference's signature and not read, as there. On the CPU: the plain
     version."""
-    T._all_on_cpu(q, vecs8, scales, rmask)   # raises on mixed devices
+    kernels.all_on_cpu(q, vecs8, scales, rmask)   # raises on mixed devices
     out = dotonly_blocks(q, vecs8, blk)
     return out if all_blocks else out[:, -1:]
 
@@ -203,7 +203,7 @@ def dotonly_blocks(q: torch.Tensor, vecs8: torch.Tensor, blk: int = 2048
     plain version."""
     n, d = vecs8.shape
     _check_blk(n, blk)
-    if T._all_on_cpu(q, vecs8):
+    if kernels.all_on_cpu(q, vecs8):
         return run_dotonly_plain(q, vecs8, blk)
     bq = q.shape[0]
     T._check_d(d)

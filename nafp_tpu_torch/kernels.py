@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = ("topk_f32", "topk_sq8", "topk_masked", "bench_variant",
-           "bench_dotonly")
+           "bench_dotonly", "layernorm2d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -105,11 +105,11 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def function(name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point ``nafp_<name>`` of kernel library ``name`` (built
-    and loaded first if needed) with its argument types set; it returns a
-    CUDA error code, 0 on success."""
-    fn = getattr(load(name), f"nafp_{name}")
+def function(name: str, argtypes, suffix: str = "") -> ctypes._CFuncPtr:
+    """The C entry point ``nafp_<name><suffix>`` of kernel library ``name``
+    (built and loaded first if needed) with its argument types set; it
+    returns a CUDA error code, 0 on success."""
+    fn = getattr(load(name), f"nafp_{name}{suffix}")
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -128,6 +128,20 @@ def occupancy(name: str, *args: int, n_out: int = 3) -> List[int]:
     if err:
         raise RuntimeError(f"nafp_{name}_occupancy{args}: CUDA error {err}")
     return list(info)
+
+
+def all_on_cpu(*ts) -> bool:
+    """True when every tensor is on the CPU (the callers' plain route),
+    False when all are on one CUDA device (the kernels' route); raises
+    for tensors on mixed devices or on any other device."""
+    devs = {t.device.type for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
+        raise ValueError(f"unsupported devices {[str(t.device) for t in ts]}")
+    return False
 
 
 def build_all() -> Tuple[float, Dict[str, str]]:

@@ -49,6 +49,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nafp_tpu_torch.ops.layernorm2d import layer_norm2d
 from nafp_tpu_torch.parallel.mesh import all_reduce_sum, world
 
 # [(freq, time) stride of conv1x3, (freq, time) stride of conv3x1] per layer
@@ -153,7 +154,9 @@ class SameConv2d(nn.Module):
 class LayerNorm2d(nn.Module):
     """TF-style LayerNormalization(axis=(1,2,3)) after an ELU: per-sample
     statistics over the whole (C,F,T) volume in f32, per-position
-    scale/offset, output cast back to the compute dtype."""
+    scale/offset, output cast back to the compute dtype
+    (``ops/layernorm2d.py``: the CUDA kernel pair on the card, the plain
+    expression on the CPU)."""
 
     def __init__(self, shape: Tuple[int, int, int], eps: float = 1e-3):
         super().__init__()
@@ -162,12 +165,7 @@ class LayerNorm2d(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.elu(x)
-        xf = x.float()
-        mean = xf.mean(dim=(1, 2, 3), keepdim=True)
-        var = (xf - mean).square().mean(dim=(1, 2, 3), keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.gamma + self.beta).to(x.dtype)
+        return layer_norm2d(x, self.gamma, self.beta, self.eps)
 
 
 class LayerNorm1d(nn.Module):

@@ -40,6 +40,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from nafp_tpu_torch.kernels import all_on_cpu
+
 NEG = -1e30
 MAX_K = 128                 # csrc/limits.cuh MAX_K
 MAX_D = 256                 # csrc/limits.cuh MAX_D
@@ -185,17 +187,6 @@ def _check_d(d: int, multiple: int = 4) -> None:
                          f"0 < d <= {MAX_D}")
 
 
-def _all_on_cpu(*ts: torch.Tensor) -> bool:
-    devs = {t.device.type for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
-    if devs == {"cpu"}:
-        return True
-    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
-        raise ValueError(f"unsupported devices {[str(t.device) for t in ts]}")
-    return False
-
-
 def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                 shape) -> None:
     if t.dtype != dtype:
@@ -315,7 +306,7 @@ def topk_ip(q: torch.Tensor, db: torch.Tensor, k: int
     share a per-query admission bound, a (Bq,) scratch filled with NEG.
     Returns (scores f32, positions int32), each (Bq, k)."""
     _check_k(k)
-    if _all_on_cpu(q, db):
+    if all_on_cpu(q, db):
         return topk_ip_plain(q, db, k)
     bq, d = q.shape
     n = db.shape[0]
@@ -339,7 +330,7 @@ def topk_ip_sq8(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,
     f32 (0 / NEG). On the CPU: the plain version in f32, as the JAX
     package's interpret mode. Returns (scores, positions), each (Bq, k)."""
     _check_k(k)
-    if _all_on_cpu(q, vecs8, scales, rmask):
+    if all_on_cpu(q, vecs8, scales, rmask):
         return topk_ip_sq8_plain(q, vecs8, scales, rmask, k, torch.float32)
     bq, d = q.shape
     n = vecs8.shape[0]
@@ -374,7 +365,7 @@ def topk_ip_masked(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
     if n % list_tile or tuple(bias.shape) != (bq, n // list_tile):
         raise ValueError(f"bias {tuple(bias.shape)} does not match "
                          f"(Bq, N / list_tile) = ({bq}, {n} / {list_tile})")
-    if _all_on_cpu(q, db, ids, bias):
+    if all_on_cpu(q, db, ids, bias):
         return topk_ip_masked_plain(q, db, ids, bias, k, list_tile)
     _check_d(d)
     _check_cuda("q", q, torch.float32, (bq, d))

@@ -64,6 +64,8 @@ float2 make_float2(float, float);
 void __syncthreads();
 void __syncwarp(unsigned m = 0xffffffffu);
 template <class T> T __shfl_xor_sync(unsigned, T, int);
+template <class T> T __shfl_down_sync(unsigned, T, unsigned);
+template <class T> T __shfl_sync(unsigned, T, int);
 unsigned __ballot_sync(unsigned, int);
 int __any_sync(unsigned, int);
 int __popc(unsigned);
@@ -79,6 +81,8 @@ float __ldcg(const float*);
 size_t __cvta_generic_to_shared(const void*);
 float __fmul_rn(float, float);
 float __fadd_rn(float, float);
+float __fsub_rn(float, float);
+float rsqrtf(float);
 float fmaxf(float, float);
 int __dp4a(int, int, int);
 using std::max;
@@ -91,6 +95,7 @@ struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 __nv_bfloat162 __floats2bfloat162_rn(float, float);
 float __bfloat162float(__nv_bfloat16);
 __nv_bfloat16 __float2bfloat16_rn(float);
+unsigned short __bfloat16_as_ushort(__nv_bfloat16);
 """
 
 SOURCES = sorted(f for f in os.listdir(kernels.CSRC) if f.endswith(".cu"))

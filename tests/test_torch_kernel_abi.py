@@ -12,6 +12,7 @@ import pytest
 
 from nafp_tpu_torch import kernels
 from nafp_tpu_torch.extras import bench_sq8_kernel as B
+from nafp_tpu_torch.ops import layernorm2d as L
 from nafp_tpu_torch.search import topk as T
 
 # the argtypes each Python caller sets for a C entry point; the occupancy
@@ -23,6 +24,8 @@ WRAPPER_ARGTYPES = {
     "nafp_topk_masked": T._ARGTYPES["topk_masked"],
     "nafp_bench_variant": B._VARIANT_ARGTYPES,
     "nafp_bench_dotonly": B._DOTONLY_ARGTYPES,
+    "nafp_layernorm2d_fwd": L._ARGTYPES["_fwd"],
+    "nafp_layernorm2d_bwd": L._ARGTYPES["_bwd"],
 }
 _EXTERN = re.compile(r'extern "C" int (nafp_\w+)\(([^)]*)\)', re.S)
 
@@ -43,11 +46,12 @@ ENTRY_POINTS = _entry_points()
 
 
 def _kind(decl: str) -> str:
-    """'pointer' or 'int' for one C parameter declaration."""
+    """'pointer', 'int' or 'float' for one C parameter declaration."""
     if "*" in decl:
         return "pointer"
-    if re.fullmatch(r"(const\s+)?int\s+\w+", decl):
-        return "int"
+    for kind in ("int", "float"):
+        if re.fullmatch(rf"(const\s+)?{kind}\s+\w+", decl):
+            return kind
     raise AssertionError(f"unexpected C parameter {decl!r}")
 
 
@@ -57,11 +61,13 @@ def _ctypes_kind(t) -> str:
         return "pointer"
     if t is ctypes.c_int:
         return "int"
+    if t is ctypes.c_float:
+        return "float"
     raise AssertionError(f"unexpected argtype {t!r}")
 
 
 def test_every_entry_point_is_known():
-    assert len(ENTRY_POINTS) == 10
+    assert len(ENTRY_POINTS) == 12
     for name in ENTRY_POINTS:
         assert name in WRAPPER_ARGTYPES or name.endswith("_occupancy"), name
     assert set(WRAPPER_ARGTYPES) <= set(ENTRY_POINTS)
