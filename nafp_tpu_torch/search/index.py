@@ -21,7 +21,7 @@ from nafp_tpu_torch.device import (DeviceLike, chunked_device_put,
                                    resolve_device)
 from nafp_tpu_torch.search.topk import (NEG, topk_ip, topk_ip_masked,
                                         topk_ip_sq8, topk_low_index)
-from nafp_tpu_torch.utils.profiling import span, spanned
+from nafp_tpu_torch.utils.profiling import count, recording, span, spanned
 
 # ---------------------------------------------------------------------------
 # Exact flat index
@@ -513,6 +513,7 @@ class IVFPQIndex:
         self.ids = chunked_device_put(ids, dev, np.int32)   # row -> orig id
         self.sub_list = chunked_device_put(sub_list, dev, np.int32)
         self.n_pad = int(self.codes.shape[0])
+        self._list_rows = None       # real rows per list, counted if traced
 
     @classmethod
     def load(cls, path: str, nprobe: int = 40,
@@ -591,6 +592,7 @@ class IVFPQIndex:
         c, i, s = _pq_gather_subtiles(
             self.codes, self.ids, self.sub_list,
             torch.from_numpy(sub_idx).to(self.device), lt=lt)
+        count("ivfpq.pruned")
         return c, i, s, n_pad * lt
 
     @spanned("index.search")
@@ -599,7 +601,21 @@ class IVFPQIndex:
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Chunk-major search: stage every query block (queries, the
         per-list probe bias, the running top-k), then decode each DB chunk
-        once and run kernel B3 on it for every block."""
+        once and run kernel B3 on it for every block.
+
+        Under a profiler the call is the device span ``ivfpq.search``,
+        holding ``ivfpq.probe`` (the staging, the probed union and the
+        coverage decision), one ``ivfpq.decode`` per chunk and one
+        ``ivfpq.scan`` per chunk (bias expansion, B3, merge). The counter
+        ``ivfpq.probed_rows`` (real rows of the lists each of the
+        caller's query rows probes) is then computed on the card and
+        fetched with the coverage in the one device-to-host copy that
+        the coverage makes untraced (the first ``index.wait``);
+        ``ivfpq.pruned`` counts the calls that take the gathered route."""
+        with span("ivfpq.search", device=True):
+            return self._search(q, k, block, chunk_rows)
+
+    def _search(self, q, k, block, chunk_rows):
         q = np.asarray(q, np.float32)
         lt = self.LIST_TILE
         dev = self.device
@@ -608,45 +624,57 @@ class IVFPQIndex:
         chunk = max(chunk, self.BLK)
         keep = min(4 * k if self.refine else k, self.n_pad)
         blocks = []
-        for s in range(0, len(q), block):
-            blk = q[s:s + block]
-            # only a multi-block search pads its last block (B3 therefore
-            # sees any block size from 1 to `block`)
-            pad = block - len(blk) if len(blk) < block and len(q) > block \
-                else 0
-            if pad:
-                blk = np.pad(blk, ((0, pad), (0, 0)))
-            qd = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
-            blocks.append({
-                "qd": qd, "pad": pad,
-                "bias": _pq_bias_list(qd, self.centroids,
-                                      nprobe=self.nprobe),  # (nq, nlist)
-                "v": torch.full((len(blk), keep), -float("inf"),
-                                device=dev),
-                "i": torch.full((len(blk), keep), -1, dtype=torch.int32,
-                                device=dev),
-            })
         codes_v, ids_v, sub_v, n_scan = (self.codes, self.ids,
                                          self.sub_list, self.n_pad)
-        if blocks:
-            probed = blocks[0]["bias"].new_zeros(self.nlist, dtype=torch.bool)
-            for b in blocks:
-                probed |= _pq_probed_lists(b["bias"])
-            needed = _pq_sub_needed(probed, self.sub_list)
-            with span("index.wait"):
-                coverage = needed.float().mean().item()
-            if coverage <= self.PRUNE_COVERAGE:
-                codes_v, ids_v, sub_v, n_scan = self._gather_pruned(
-                    needed.cpu().numpy(), lt)
+        with span("ivfpq.probe", device=True):
+            for s in range(0, len(q), block):
+                blk = q[s:s + block]
+                # only a multi-block search pads its last block (B3
+                # therefore sees any block size from 1 to `block`)
+                pad = block - len(blk) if len(blk) < block \
+                    and len(q) > block else 0
+                if pad:
+                    blk = np.pad(blk, ((0, pad), (0, 0)))
+                qd = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
+                blocks.append({
+                    "qd": qd, "pad": pad,
+                    "bias": _pq_bias_list(qd, self.centroids,
+                                          nprobe=self.nprobe),  # (nq, nlist)
+                    "v": torch.full((len(blk), keep), -float("inf"),
+                                    device=dev),
+                    "i": torch.full((len(blk), keep), -1, dtype=torch.int32,
+                                    device=dev),
+                })
+            if blocks:
+                probed = blocks[0]["bias"].new_zeros(self.nlist,
+                                                     dtype=torch.bool)
+                for b in blocks:
+                    probed |= _pq_probed_lists(b["bias"])
+                needed = _pq_sub_needed(probed, self.sub_list)
+                coverage = needed.float().mean()
+                with span("index.wait"):
+                    if recording():    # the counter rides on the same copy
+                        coverage, rows = torch.stack([
+                            coverage.double(),
+                            self._probed_rows(blocks)]).tolist()
+                        count("ivfpq.probed_rows", rows)
+                    else:
+                        coverage = coverage.item()
+                if coverage <= self.PRUNE_COVERAGE:
+                    codes_v, ids_v, sub_v, n_scan = self._gather_pruned(
+                        needed.cpu().numpy(), lt)
         for cs in range(0, n_scan, chunk):
             ce = min(cs + chunk, n_scan)
             sub_c = sub_v[cs // lt:ce // lt]
-            dec = self._decode_chunk(codes_v[cs:ce], sub_c)
+            with span("ivfpq.decode", device=True):
+                dec = self._decode_chunk(codes_v[cs:ce], sub_c)
             ids_c = ids_v[cs:ce]
-            for b in blocks:
-                bias_c = _pq_expand_bias(b["bias"], sub_c)
-                v, i = topk_ip_masked(b["qd"], dec, ids_c, bias_c, keep, lt)
-                b["v"], b["i"] = _merge_topk(b["v"], b["i"], v, i)
+            with span("ivfpq.scan", device=True):
+                for b in blocks:
+                    bias_c = _pq_expand_bias(b["bias"], sub_c)
+                    v, i = topk_ip_masked(b["qd"], dec, ids_c, bias_c, keep,
+                                          lt)
+                    b["v"], b["i"] = _merge_topk(b["v"], b["i"], v, i)
         outs_d, outs_i = [], []
         for b in blocks:
             best_v, best_i = b["v"], b["i"]
@@ -661,6 +689,21 @@ class IVFPQIndex:
         if not outs_d:
             return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
         return np.concatenate(outs_d), np.concatenate(outs_i)
+
+    def _probed_rows(self, blocks) -> torch.Tensor:
+        """f64 scalar on the card: the real rows of the lists each query
+        row probes, summed over the caller's rows (a block's pad rows
+        left out). The rows per list are counted once per store."""
+        if self._list_rows is None:
+            self._list_rows = torch.bincount(
+                self.sub_list.long().repeat_interleave(self.LIST_TILE)[
+                    self.ids >= 0], minlength=self.nlist)
+        total = self._list_rows.new_zeros(())
+        for b in blocks:
+            n = b["bias"].shape[0] - b["pad"]
+            total += ((b["bias"][:n] > NEG / 2).long()
+                      * self._list_rows).sum()
+        return total.double()
 
 
 def _pq_codewords(codes: torch.Tensor, books: torch.Tensor) -> torch.Tensor:
@@ -711,7 +754,7 @@ def _pq_bias_list(q, centroids, *, nprobe):
     ``nprobe`` best lists by f32 ``q · centroid`` (ties to the lower list,
     as ``jax.lax.top_k``). Expanded to subtiles chunk by chunk."""
     q_cent = q @ centroids.T
-    _, probes = topk_low_index(q_cent, nprobe)
+    _, probes = _sorted_topk(q_cent, nprobe)
     return torch.full_like(q_cent, NEG).scatter_(1, probes, 0.0)
 
 
@@ -748,8 +791,17 @@ def _merge_topk(best_v, best_i, v, i):
     """Running top-k of (best, new chunk); ties go to the earlier slot."""
     all_v = torch.cat([best_v, v], 1)
     all_i = torch.cat([best_i, i], 1)
-    nv, sel = topk_low_index(all_v, best_v.shape[1])
+    nv, sel = _sorted_topk(all_v, best_v.shape[1])
     return nv, all_i.gather(1, sel)
+
+
+def _sorted_topk(x, k):
+    """Row-wise top-k of a narrow (nq, n) tensor, descending, ties to the
+    lower column as ``topk_low_index``, by one stable sort: it queues on
+    the stream where ``topk_low_index`` waits on the host for a
+    ``nonzero``, once a probe block and once a B3 launch."""
+    v, order = torch.sort(x, dim=1, descending=True, stable=True)
+    return v[:, :k], order[:, :k]
 
 
 def _pq_refine(q, raw, best_i, *, k):

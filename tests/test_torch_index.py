@@ -351,6 +351,20 @@ def test_ivfpq_probe_pruned_scan_matches_linear(rng, monkeypatch):
     assert not calls
 
 
+@pytest.mark.parametrize("n,k", [(256, 40), (40, 20), (8, 8)])
+def test_ivfpq_sorted_topk_matches_topk_low_index(rng, n, k):
+    """The probe's and the merge's sync-free top-k returns topk_low_index's
+    values and columns, ties to the lower column, -inf included."""
+    from nafp_tpu_torch.search.topk import topk_low_index
+    for scores in (rng.integers(-3, 3, (64, n)).astype(np.float32),
+                   rng.standard_normal((64, n)).astype(np.float32)):
+        scores[rng.random((64, n)) < 0.1] = -np.inf
+        x = torch.from_numpy(scores)
+        want, got = topk_low_index(x, k), P._sorted_topk(x, k)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
 def test_ivfpq_decode_matches_jax(rng):
     """The gather decode selects the codewords in f32 and adds the list's
     centroid: on the CPU that equals the JAX package's one-hot decode bit
