@@ -22,7 +22,12 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    encoder's 16 norms, batch 640 and 125, bf16 and f32, forward and
    backward, timed at batch 640 beside its byte bound, the plain version
    and the library yardstick (``F.elu`` + ``F.layer_norm`` in f32), and its
-   launches in ``640_lamb`` train steps (one a norm each way);
+   launches in ``640_lamb`` train steps (one a norm each way); LAMB's
+   kernel pair (``optim/lamb.py``) against its plain version over 3 steps
+   at ``640_lamb``'s 68 leaves in three groups (the parameters', moments'
+   and trust ratios' widest gaps, two runs bit for bit, launches a step),
+   its kernels' device time beside the byte bound and the plain loop's
+   time;
 3. the serving path through the CLI at full model width (random weights
    from a seed, written in the Flax layout as ``params.npz``): a seeded
    synthetic corpus -> ``generate`` -> a 619,500-row DB (the 10k-song
@@ -262,6 +267,22 @@ LN2D_ROWS = (640, 125)
 LN2D_Y_GAP = {"torch.bfloat16": 1.0, "torch.float32": 1e-5}
 LN2D_DX_GAP = {"torch.bfloat16": 2.0, "torch.float32": 1e-4}
 LN2D_PARAM_GAP = 1e-4
+# LAMB's kernel pair against its plain version (phase 2) at 640_lamb's 68
+# leaves over LAMB_STEPS steps from seeded weights and gradients (one group
+# as the preset has, then a wd-0 group and one without adaptation): the
+# parameters and moments within LAMB_RTOL of each leaf's largest |value|
+# (f32 operations rounded once each on both sides, but the plain adds may
+# fuse into FMAs and the norms sum in other orders); the parameters' change
+# within LAMB_CHANGE_RTOL of its norm (each side rounds p + change to f32:
+# half an ulp of a LayerNorm scale near 1 is ~6e-8 against a change of
+# ~1e-3 an element at lr 1e-3); each step's trust ratio, the kernels'
+# ||change|| / (lr·||u||) against the plain version's, both in f64, within
+# LAMB_RATIO_RTOL (that change carries p's rounding too: at a 128-element
+# leaf of ratio ~1e-3 it moves the reading by ~1e-5); two runs bit for bit;
+# two launches a step
+LAMB_STEPS, LAMB_LR = 3, 1e-3
+LAMB_RTOL, LAMB_CHANGE_RTOL, LAMB_RATIO_RTOL = 1e-6, 1e-4, 1e-4
+LAMB_BYTES_PER_PARAM = 28     # p, g, m, v read; p, m, v written (f32)
 ACT_COS_MIN = {"int8": 0.98, "fp8": 0.97}
 ACT_COS_MEAN = {"int8": 0.99, "fp8": 0.98}
 # ACT_STORE's top-1 against bf16's on the now_playing checkpoint's rows:
@@ -1068,12 +1089,14 @@ def phase_layernorm2d(dev):
     640 in bf16, each norm timed forward and backward against the byte
     bound (4 and 6 bytes an element), the plain version and the library
     yardstick; and one 640_lamb train step launches the pair once a norm
-    each way (bench_train_step, 2 steps after its warm-up)."""
+    each way and LAMB's kernel pair once (bench_train_step, 2 steps after
+    its warm-up: the trainer's ``Lamb.step`` reaches ``csrc/lamb.cu``)."""
     import torch
     from nafp_tpu_torch.configuration import load_config
     from nafp_tpu_torch.extras import bench_train_step
     from nafp_tpu_torch.models import nnfp
     from nafp_tpu_torch.ops import layernorm2d as L
+    from nafp_tpu_torch.optim import lamb
 
     ln2d_elu_check(dev)
     model = nnfp.get_fingerprinter(load_config("640_lamb"))
@@ -1130,16 +1153,196 @@ def phase_layernorm2d(dev):
     log(f"  LayerNorm2d, the 16 norms of a batch-640 step: " + json.dumps(
         {k: round(v, 4) for k, v in step.items()}))
     L.reset_launches()
+    lamb.reset_launches()
     res = bench_train_step.main(["-c", "640_lamb", "--steps", "2"])
     torch.cuda.synchronize()
     want = 3 * len(shapes)                  # the warm-up step and 2 more
     if L.LAUNCHES != {"layer_norm2d": want, "layer_norm2d_backward": want}:
         raise AssertionError(f"640_lamb steps launched {L.LAUNCHES}, "
                              f"expected {want} each way")
-    log(f"  640_lamb: 3 steps launched {dict(L.LAUNCHES)}; step "
-        f"{res['step_ms']} ms")
+    # one group of 68 leaves: one launch of each kernel a step
+    if lamb.LAUNCHES != {"lamb_moments": 3, "lamb_apply": 3}:
+        raise AssertionError(f"640_lamb steps launched LAMB's kernels "
+                             f"{lamb.LAUNCHES}, expected 3 each")
+    log(f"  640_lamb: 3 steps launched {dict(L.LAUNCHES)} and "
+        f"{dict(lamb.LAUNCHES)}; step {res['step_ms']} ms")
     return dict(worst_gaps=worst, layer1=per_shape[0], step=step,
-                train_step_ms=res["step_ms"], launches=dict(L.LAUNCHES))
+                train_step_ms=res["step_ms"], launches=dict(L.LAUNCHES),
+                lamb_launches=dict(lamb.LAUNCHES))
+
+
+def lamb_ratios(states, groups, p_old):
+    """(trust ratio, ||u||) of every leaf at the step just made, in f64,
+    by the plain version's arithmetic: u from the leaf's moments,
+    bias-corrected at its step, and its parameters before the step; the
+    ratio 1 without adaptation or where a norm is 0."""
+    import torch
+    out = []
+    for group in groups:
+        b1, b2 = group["betas"]
+        for i in group["params"]:
+            t, m, v = (states[i][k] for k in ("step", "exp_avg",
+                                              "exp_avg_sq"))
+            u = (m / (1 - b1 ** t)) / ((v / (1 - b2 ** t)).sqrt()
+                                       + group["eps"])
+            if group["weight_decay"]:
+                u = u + group["weight_decay"] * p_old[i]
+            wn, un = (float(torch.linalg.vector_norm(x.double()))
+                      for x in (p_old[i], u))
+            out.append((wn / un if group["layer_adaptation"] and wn > 0
+                        and un > 0 else 1.0, un))
+    return out
+
+
+def phase_lamb(dev):
+    """LAMB's kernel pair against its plain version at 640_lamb's 68 leaves:
+    LAMB_STEPS steps from seeded weights (one leaf zeroed) and gradients,
+    the leaves in three groups (as the preset's one, a wd-0 group, one
+    without layer adaptation) through ``Lamb.step`` and through
+    ``plain_update`` leaf by leaf, in lockstep; the widest gaps of the
+    parameters and moments (absolute, and over each leaf's largest
+    |value|), of the parameters' change (over its norm) and of the trust
+    ratios each step (the kernels' effective ratio, ||change|| /
+    (lr·||u||), against the plain version's, in f64); a second run of the
+    kernels bit for bit. (The trainer's launches a step are counted in
+    ``phase_layernorm2d``'s 640_lamb run.) Then the preset's
+    one group: the kernels' device time a step (under the profiler, where
+    the port's counter ``lamb.fused_leaves`` must read the 68 leaves a
+    step) beside the byte bound (LAMB_BYTES_PER_PARAM a parameter), the
+    fused route's wall time a step and the plain loop's."""
+    import torch
+    from nafp_tpu_torch.configuration import load_config
+    from nafp_tpu_torch.optim import lamb as L
+    from nafp_tpu_torch.optim.schedules import build_optimizer
+    from nafp_tpu_torch.train.trainer import build_fp
+    from nafp_tpu_torch.utils import profiling
+    from nafp_tpu_torch.utils.profiling import device_profile
+
+    cfg = load_config("640_lamb")
+    _, _, model, _ = build_fp(cfg)
+    opt, _ = build_optimizer(cfg, model, 100)
+    (preset,) = opt.param_groups
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p0 = [p.detach().to(dev) for p in model.parameters()]
+    del model, opt
+    p0[1].zero_()
+    n = len(p0)
+    grads = [[0.01 * torch.randn(p.shape, generator=gen, device=dev)
+              for p in p0] for _ in range(LAMB_STEPS)]
+    base = dict(lr=LAMB_LR, betas=tuple(preset["betas"]), eps=preset["eps"],
+                weight_decay=preset["weight_decay"],
+                layer_adaptation=preset["layer_adaptation"])
+    split = [dict(base, params=list(range(n - 8))),
+             dict(base, params=list(range(n - 8, n - 4)), weight_decay=0.0),
+             dict(base, params=list(range(n - 4, n)), weight_decay=0.0,
+                  layer_adaptation=False)]
+
+    def fused():
+        ps = [torch.nn.Parameter(p.clone()) for p in p0]
+        return ps, L.Lamb([dict(g, params=[ps[i] for i in g["params"]])
+                           for g in split], lr=LAMB_LR)
+
+    def fused_step(ps, opt, step):
+        for p, g in zip(ps, grads[step]):
+            p.grad = g
+        opt.step()
+
+    def gap(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    # the kernels and the plain version in lockstep, with the kernels'
+    # effective ratios
+    got, kopt = fused()
+    ps = [p.clone() for p in p0]
+    states = [{"step": 0, "exp_avg": torch.zeros_like(p),
+               "exp_avg_sq": torch.zeros_like(p)} for p in p0]
+    ratio_gap, ratios = 0.0, []
+    for step in range(LAMB_STEPS):
+        p_old = [p.clone() for p in ps]
+        for g in split:
+            for i in g["params"]:
+                L.plain_update(ps[i], grads[step][i], states[i], g)
+        k_old = [p.detach().clone() for p in got]
+        fused_step(got, kopt, step)
+        for i, (ratio, un) in enumerate(lamb_ratios(states, split, p_old)):
+            ratios.append(ratio)
+            change = float(torch.linalg.vector_norm(
+                got[i].detach().double() - k_old[i]))
+            ratio_gap = max(ratio_gap,
+                            abs(change / (LAMB_LR * un) - ratio) / ratio)
+    # a second run of the kernels from the same state
+    again, aopt = fused()
+    for step in range(LAMB_STEPS):
+        fused_step(again, aopt, step)
+    torch.cuda.synchronize()
+    got_st = [kopt.state[p] for p in got]
+    again_st = [aopt.state[p] for p in again]
+    got = [p.detach() for p in got]
+    same = all(torch.equal(a, b) for a, b in zip(got, again)) and all(
+        torch.equal(a[k], b[k]) for a, b in zip(got_st, again_st)
+        for k in ("exp_avg", "exp_avg_sq"))
+    pairs = dict(param=list(zip(got, ps)), **{
+        k: [(a[k], b[k]) for a, b in zip(got_st, states)]
+        for k in ("exp_avg", "exp_avg_sq")})
+    abs_gaps = {k: max(float((a - b).abs().max()) for a, b in v)
+                for k, v in pairs.items()}
+    gaps = dict(
+        {k: max(gap(a, b) for a, b in v) for k, v in pairs.items()},
+        change=max(float(torch.linalg.vector_norm(a.double() - b)
+                         / torch.linalg.vector_norm(b.double() - c))
+                   for a, b, c in zip(got, ps, p0)),
+        ratio=ratio_gap)
+    log(f"  LAMB at 640_lamb's {n} leaves, {LAMB_STEPS} steps: relative "
+        "gaps " + json.dumps({k: float(f"{v:.3g}") for k, v in gaps.items()})
+        + ", absolute " + json.dumps({k: float(f"{v:.3g}")
+                                      for k, v in abs_gaps.items()})
+        + f"; trust ratios {min(ratios):.4g}..{max(ratios):.4g}; two runs "
+        f"equal {same}")
+    lim = dict(param=LAMB_RTOL, exp_avg=LAMB_RTOL, exp_avg_sq=LAMB_RTOL,
+               change=LAMB_CHANGE_RTOL, ratio=LAMB_RATIO_RTOL)
+    bad = {k: v for k, v in gaps.items() if not v <= lim[k]}
+    if bad or not same:
+        raise AssertionError(f"LAMB's kernel pair: gaps over the limits "
+                             f"{bad}, two runs equal {same}")
+    # timings in the preset's one group
+    del got, again, got_st, again_st, kopt, aopt, pairs
+    ps = [torch.nn.Parameter(p.clone()) for p in p0]
+    opt = L.Lamb([dict(base, params=ps)], lr=LAMB_LR)
+    for p, g in zip(ps, grads[0]):
+        p.grad = g
+    iters = 50
+    ms = time_ms(opt.step, iters)
+    profiling.reset()
+    prof = device_profile(lambda: [opt.step() for _ in range(iters)])
+    kernel_ms = {k: v[0] / iters for k, v in prof["by_name"].items()
+                 if "lamb_" in k}
+    fused_leaves = profiling.snapshot()["counts"].get(
+        "lamb.fused_leaves", 0) / iters
+    if fused_leaves != n:
+        raise AssertionError(f"lamb.fused_leaves {fused_leaves} a step under "
+                             f"the profiler, expected {n}")
+    plain_states = [{"step": 0, "exp_avg": torch.zeros_like(p),
+                     "exp_avg_sq": torch.zeros_like(p)} for p in p0]
+    pp = [p.clone() for p in p0]
+
+    def plain_step():
+        for i, p in enumerate(pp):
+            L.plain_update(p, grads[0][i], plain_states[i], base)
+    plain_ms = time_ms(plain_step, 10)
+    n_params = sum(p.numel() for p in p0)
+    out = dict(gaps=gaps, abs_gaps=abs_gaps, ratios=[min(ratios), max(ratios)],
+               two_runs_equal=same,
+               kernel_ms=sum(kernel_ms.values()), kernels=kernel_ms,
+               step_ms=ms, plain_ms=plain_ms, n_params=n_params,
+               fused_leaves_per_step=fused_leaves,
+               bound_ms=LAMB_BYTES_PER_PARAM * n_params / PEAK_BYTES * 1e3)
+    log(f"  LAMB a 640_lamb step: kernels {out['kernel_ms']:.4f} ms "
+        f"({json.dumps({k[:60]: round(v, 4) for k, v in kernel_ms.items()})})"
+        f", bound {out['bound_ms']:.4f} ms ({n_params} parameters x "
+        f"{LAMB_BYTES_PER_PARAM} B), the fused route's wall {ms:.4f} ms a "
+        f"step, the plain loop {plain_ms:.3f} ms; lamb.fused_leaves "
+        f"{fused_leaves:g} a step")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3279,6 +3482,7 @@ def main() -> int:
     log("[2/10] kernels against their plain versions")
     rec = timed("kernels", phase_kernels, dev)
     ln2d = timed("LayerNorm2d", phase_layernorm2d, dev)
+    lamb = timed("LAMB", phase_lamb, dev)
     log("[3/10] serving path through the CLI (full width)")
     main_path = timed("main path", phase_main_path, dev)
     ivf_sq8 = timed("IVF-SQ8", phase_ivf_sq8, dev, main_path)
@@ -3355,13 +3559,26 @@ def main() -> int:
         max_abs_err={key: dict(zip(("y", "dx", "dgamma", "dbeta"), gap))
                      for key, gap in ln2d["worst_gaps"].items()},
         launches=ln2d["launches"], launches_run="640_lamb, 3 steps"))
+    # ms of a 640_lamb step's update (68 leaves, one group); absolute gaps
+    # of the parameters and moments, and relative ones over each leaf's
+    # largest |value| (the change's and the ratio's over their own);
+    # launches of the trainer's 640_lamb steps
+    kernels_line.append(dict(
+        name="LAMB", route="cuda", source="nafp_tpu_torch/csrc/lamb.cu",
+        replaces="none (XLA fusion)", ms=lamb["kernel_ms"],
+        bound_ms=lamb["bound_ms"], plain_ms=lamb["plain_ms"],
+        wall_ms=lamb["step_ms"], kernels=lamb["kernels"],
+        shape=f"640_lamb's 68 leaves, {lamb['n_params']} f32 parameters",
+        max_abs_err=lamb["abs_gaps"], max_rel_err=lamb["gaps"],
+        trust_ratios=lamb["ratios"], two_runs_equal=lamb["two_runs_equal"],
+        launches=ln2d["lamb_launches"], launches_run="640_lamb, 3 steps"))
     for r in kernels_line:
         r["max_err"] = r["max_abs_err"]
     summary = {k: v for k, v in main_path.items()
                if k not in ("cfg", "variables", "cfg_path", "dummy_dir",
                             "emb_dir", "l2_top1", "data", "raw")}
     summary.update(enc, training=training, sharded=sharded, triplet=triplet,
-                   layernorm2d=ln2d,
+                   layernorm2d=ln2d, lamb=lamb,
                    ivf_sq8={k: v for k, v in ivf_sq8.items()
                             if k not in ("raw", "store")},
                    measurement=measurement,

@@ -28,6 +28,7 @@ CUDA_RUNTIME_H = r"""#pragma once
 #define __host__
 #define __forceinline__ inline
 #define __shared__
+#define __grid_constant__
 #define __launch_bounds__(...)
 #define __maxnreg__(...)
 #define __align__(n) __attribute__((aligned(n)))
@@ -82,6 +83,8 @@ size_t __cvta_generic_to_shared(const void*);
 float __fmul_rn(float, float);
 float __fadd_rn(float, float);
 float __fsub_rn(float, float);
+float __fdiv_rn(float, float);
+float __fsqrt_rn(float);
 float rsqrtf(float);
 float fmaxf(float, float);
 int __dp4a(int, int, int);

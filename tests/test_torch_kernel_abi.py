@@ -13,6 +13,7 @@ import pytest
 from nafp_tpu_torch import kernels
 from nafp_tpu_torch.extras import bench_sq8_kernel as B
 from nafp_tpu_torch.ops import layernorm2d as L
+from nafp_tpu_torch.optim import lamb
 from nafp_tpu_torch.search import topk as T
 
 # the argtypes each Python caller sets for a C entry point; the occupancy
@@ -26,6 +27,7 @@ WRAPPER_ARGTYPES = {
     "nafp_bench_dotonly": B._DOTONLY_ARGTYPES,
     "nafp_layernorm2d_fwd": L._ARGTYPES["_fwd"],
     "nafp_layernorm2d_bwd": L._ARGTYPES["_bwd"],
+    "nafp_lamb_step": lamb._ARGTYPES,
 }
 _EXTERN = re.compile(r'extern "C" int (nafp_\w+)\(([^)]*)\)', re.S)
 
@@ -67,7 +69,7 @@ def _ctypes_kind(t) -> str:
 
 
 def test_every_entry_point_is_known():
-    assert len(ENTRY_POINTS) == 12
+    assert len(ENTRY_POINTS) == 13
     for name in ENTRY_POINTS:
         assert name in WRAPPER_ARGTYPES or name.endswith("_occupancy"), name
     assert set(WRAPPER_ARGTYPES) <= set(ENTRY_POINTS)

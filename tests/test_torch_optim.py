@@ -1,7 +1,9 @@
 """Port parity: LAMB and Adam (nafp_tpu_torch.optim) against the JAX
 package's optimizers over 3 steps with identical gradients on a Flax-shaped
 parameter tree (conv kernel, layer-norm volume, DivEnc weights, a zero
-leaf), and the learning-rate schedules at several steps, on the CPU."""
+leaf), and the learning-rate schedules at several steps, on the CPU; and
+LAMB with the port's model on the card (its kernel pair) against the JAX
+package on the CPU."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,7 @@ import torch
 from nafp_tpu.optim import schedules as J
 from nafp_tpu_torch.models.convert import flax_to_torch, torch_to_flax
 from nafp_tpu_torch.models.nnfp import FingerPrinter
+from nafp_tpu_torch.optim import lamb as L
 from nafp_tpu_torch.optim import schedules as P
 
 SMALL_CH = (8, 8, 16, 16, 32, 32, 64, 64)
@@ -33,6 +36,24 @@ def _cfg(optimizer, schedule="cos", lr=1e-3):
 @pytest.mark.parametrize("optimizer", ["Adam", "LAMB"])
 @pytest.mark.parametrize("schedule", ["cos", "cos-restart"])
 def test_optimizer_matches_jax(optimizer, schedule):
+    _against_jax(optimizer, schedule, torch.device("cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["cos", "cos-restart"])
+def test_lamb_on_the_card_matches_jax(schedule):
+    """The port's parameters, gradients and moments on the card, so that
+    ``Lamb.step`` updates the 68 leaves by ``csrc/lamb.cu``'s kernel pair,
+    one launch of each a step, held against the JAX package's LAMB on the
+    CPU within the same PARAM_RTOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    L.reset_launches()
+    _against_jax("LAMB", schedule, torch.device("cuda", 0))
+    assert L.LAUNCHES == {"lamb_moments": 3, "lamb_apply": 3}
+
+
+def _against_jax(optimizer, schedule, device):
     cfg = _cfg(optimizer, schedule)
     model = FingerPrinter((256, 32), emb_sz=16, front_hidden_ch=SMALL_CH,
                           seed=5)
@@ -45,6 +66,7 @@ def test_optimizer_matches_jax(optimizer, schedule):
                     p.shape).astype(np.float32)))
     params = jax.tree_util.tree_map(jnp.asarray,
                                     torch_to_flax(model.state_dict()))
+    model.to(device)
     total = 20
     jopt = J.build_optimizer(cfg, total)
     jstate = jopt.init(params)
@@ -62,10 +84,10 @@ def test_optimizer_matches_jax(optimizer, schedule):
         for g in topt.param_groups:
             g["lr"] = sched(step)
         for n, p in model.named_parameters():
-            p.grad = grads[n]
+            p.grad = grads[n].to(device)
         topt.step()
         want = flax_to_torch(jax.tree_util.tree_map(np.asarray, params))
-        got = model.state_dict()
+        got = {n: t.cpu() for n, t in model.state_dict().items()}
         for n in names:
             w = want[n].numpy()
             np.testing.assert_allclose(
