@@ -2903,17 +2903,17 @@ def phase_sharded(dev, main_path, ivf_sq8):
                                3))
     sh = sq_r.shards[-1]
     q1024 = torch.from_numpy(qs).to(dev)
-    args = (q1024, sh["vecs8"], sh["scales"], sh["rmask"], K)
+    args = (q1024, sh.vecs8, sh.scales, sh.rmask, K)
     v, i = T.topk_ip_sq8(*args)
     pv, pi = T.topk_ip_sq8_plain(*args, compute_dtype=torch.bfloat16)
     qb = q1024.to(torch.bfloat16).double()
-    real = int((sh["ids"] >= 0).sum())
-    tag = (f"B2 on shard {SHARDS - 1} (Bq 1024, N {len(sh['ids'])}, "
+    real = int((sh.ids >= 0).sum())
+    tag = (f"B2 on shard {SHARDS - 1} (Bq 1024, N {len(sh.ids)}, "
            f"{real} of them real rows, k {K})")
     b2_err = check_topk(tag, v, i, pv, pi, lambda ids: torch.einsum(
-        "bd,bkd->bk", qb, sh["vecs8"].double()[ids])
-        * sh["scales"].double()[ids] + sh["rmask"].double()[ids])
-    n2 = len(sh["ids"])
+        "bd,bkd->bk", qb, sh.vecs8.double()[ids])
+        * sh.scales.double()[ids] + sh.rmask.double()[ids])
+    n2 = len(sh.ids)
     b2 = dict(rows=n2, real_rows=real, max_abs_err=b2_err,
               bound_ms=1e3 * max(2.0 * 1024 * n2 * 128 / PEAK_BF16,
                                  (n2 * (128 + 8) + 4.0 * 1024 * 128

@@ -23,10 +23,66 @@ from nafp_tpu_torch.search.topk import (NEG, topk_ip, topk_ip_masked,
                                         topk_ip_sq8, topk_low_index)
 from nafp_tpu_torch.utils.profiling import count, recording, span, spanned
 
+
+# ---------------------------------------------------------------------------
+# The query-block seam
+# ---------------------------------------------------------------------------
+def query_blocks(q: np.ndarray, block: int):
+    """(rows, n_real) per query block of ``block`` rows; only a multi-block
+    search pads its last block (a kernel therefore sees any block size from
+    1 to ``block``)."""
+    for s in range(0, len(q), block):
+        blk = q[s:s + block]
+        pad = block - len(blk) if len(q) > block else 0
+        if pad:
+            blk = np.pad(blk, ((0, pad), (0, 0)))
+        yield np.ascontiguousarray(blk), len(blk) - pad
+
+
+class BlockSearch:
+    """The query-block seam every index's ``search`` goes through.
+
+    ``_host`` is the numpy edge: it takes the queries as f32, pulls each
+    block's device ``(scores, ids)`` from ``_device_results`` in turn,
+    copies its real rows to the host under ``index.wait`` and concatenates
+    them (an empty query gives ``(0, k)`` f32 / int32). By default a block
+    is uploaded to ``self.device``, searched by ``search_block`` and
+    copied before the next one goes up; an index gives
+
+    - ``search_block(qd, k)``: one padded (rows, d) f32 query block on the
+      device -> device ``(scores, ids)`` (rows, k), the route decided
+      inside;
+    - ``block_rows(block)``: the block size it searches a caller's
+      ``block`` in (the caller's by default).
+
+    IVF-PQ overrides ``_device_results``: it stages every block first.
+    """
+
+    def block_rows(self, block: int) -> int:
+        return block
+
+    def _device_results(self, q: np.ndarray, k: int, block: int):
+        for blk, n in query_blocks(q, self.block_rows(block)):
+            qd = torch.from_numpy(blk).to(self.device)
+            yield self.search_block(qd, k), n
+
+    def _host(self, q, k: int, *args) -> Tuple[np.ndarray, np.ndarray]:
+        q = np.asarray(q, np.float32)
+        outs_d, outs_i = [], []
+        for (d, i), n in self._device_results(q, k, *args):
+            with span("index.wait"):
+                outs_d.append(d[:n].cpu().numpy())
+                outs_i.append(i[:n].cpu().numpy().astype(np.int32,
+                                                         copy=False))
+        if not outs_d:
+            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
+        return np.concatenate(outs_d), np.concatenate(outs_i)
+
+
 # ---------------------------------------------------------------------------
 # Exact flat index
 # ---------------------------------------------------------------------------
-class FlatIndex:
+class FlatIndex(BlockSearch):
     """Exact search over a device-resident (N, d) f32 matrix.
 
     At ``PALLAS_MIN_ROWS`` rows and above, with an inner-product-rankable
@@ -70,14 +126,19 @@ class FlatIndex:
         else:
             self._unit_norm = True
 
-    def _search_block(self, q: torch.Tensor, k: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        sim = q @ self.db.T
+    def search_block(self, qd: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One query block: on B1's route its inner products (an 'l2'
+        ``search`` recovers the distances on the host), else one
+        ``qd @ dbᵀ`` and a top-k, of L2² distances for 'l2'."""
+        if self._use_kernel():
+            return topk_ip(qd, self.db, k)
+        sim = qd @ self.db.T
         if self.metric == "l2":
             # ||q-x||^2 = ||q||^2 + ||x||^2 - 2 q.x ; ||q||^2 is rank-const
             score = 2.0 * sim - self.db_sq[None, :]
             d, ids = topk_low_index(score, k)
-            q_sq = torch.sum(q * q, dim=1, keepdim=True)
+            q_sq = torch.sum(qd * qd, dim=1, keepdim=True)
             return q_sq - d, ids          # actual L2^2 distances
         return topk_low_index(sim, k)
 
@@ -93,42 +154,23 @@ class FlatIndex:
             return False
         return self.metric == "ip" or self._unit_norm
 
+    def block_rows(self, block: int) -> int:
+        """B1 takes blocks of at most 512 rows, the matmul route blocks
+        within XLA_LOGITS_BUDGET."""
+        return min(block, 512) if self._use_kernel() \
+            else self._xla_block_cap(block)
+
     @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 2048) -> Tuple[np.ndarray, np.ndarray]:
         q = np.asarray(q, np.float32)
-        use_kernel = self._use_kernel()
-        block = min(block, 512) if use_kernel else self._xla_block_cap(block)
-        outs_d, outs_i = [], []
-        for s in range(0, len(q), block):
-            blk = q[s:s + block]
-            pad = 0
-            # only a multi-block search pads its last block (the kernel
-            # therefore sees any block size from 1 to 512)
-            if len(blk) < min(block, len(q)) and len(q) > block:
-                pad = block - len(blk)
-                blk = np.pad(blk, ((0, pad), (0, 0)))
-            qt = torch.from_numpy(np.ascontiguousarray(blk)).to(self.device)
-            if use_kernel:
-                d, ids = topk_ip(qt, self.db, k)
-                with span("index.wait"):
-                    d, ids = d.cpu().numpy(), ids.cpu().numpy()
-                if self.metric == "l2":
-                    # IP -> L2^2 on the k-sized result (host gather)
-                    q_sq = np.einsum("nd,nd->n", blk, blk)
-                    d = (q_sq[:, None]
-                         + self._db_sq_host[np.maximum(ids, 0)] - 2.0 * d)
-            else:
-                d, ids = self._search_block(qt, k)
-                with span("index.wait"):
-                    d, ids = d.cpu().numpy(), ids.cpu().numpy().astype(
-                        np.int32)
-            n = len(blk) - pad
-            outs_d.append(d[:n])
-            outs_i.append(ids[:n])
-        if not outs_d:
-            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
-        return np.concatenate(outs_d), np.concatenate(outs_i)
+        d, ids = self._host(q, k, block)
+        if self.metric == "l2" and self._use_kernel():
+            # IP -> L2^2 on the k-sized result (host gather); numpy's
+            # per-row einsum over d is the same whatever rows it is given
+            q_sq = np.einsum("nd,nd->n", q, q)
+            d = q_sq[:, None] + self._db_sq_host[np.maximum(ids, 0)] - 2.0 * d
+        return d, ids
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +213,7 @@ def _quantize_sq8_host(data, pad_multiple: int, block: int = 1 << 20):
     return q8, scales, ids
 
 
-class SQ8FlatIndex:
+class SQ8FlatIndex(BlockSearch):
     """Exact search over an int8-quantized device-resident store.
 
     int8 + a per-row scale is 132 B/row (4x smaller than f32); kernel B2
@@ -219,28 +261,20 @@ class SQ8FlatIndex:
         idx._publish(*_pad_sq8_store(q8, scales, ids, cls.BLK))
         return idx
 
+    def block_rows(self, block: int) -> int:
+        return min(block, (16 << 20) // (self.BLK * 4))
+
+    def search_block(self, qd: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One query block through kernel B2; a position maps to its id
+        (−1 for an empty slot)."""
+        v, pos = topk_ip_sq8(qd, self.vecs8, self.scales, self.rmask, k)
+        return v, torch.where(pos < 0, -1, self.ids[pos.clamp(min=0).long()])
+
     @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 1024) -> Tuple[np.ndarray, np.ndarray]:
-        q = np.asarray(q, np.float32)
-        block = min(block, (16 << 20) // (self.BLK * 4))
-        outs_d, outs_i = [], []
-        for s in range(0, len(q), block):
-            blk = q[s:s + block]
-            pad = block - len(blk) if len(blk) < block and len(q) > block \
-                else 0
-            if pad:
-                blk = np.pad(blk, ((0, pad), (0, 0)))
-            qt = torch.from_numpy(np.ascontiguousarray(blk)).to(self.device)
-            v, pos = topk_ip_sq8(qt, self.vecs8, self.scales, self.rmask, k)
-            ids = torch.where(pos < 0, -1, self.ids[pos.clamp(min=0).long()])
-            n = len(blk) - pad
-            with span("index.wait"):
-                outs_d.append(v[:n].cpu().numpy())
-                outs_i.append(ids[:n].cpu().numpy())
-        if not outs_d:
-            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
-        return np.concatenate(outs_d), np.concatenate(outs_i)
+        return self._host(q, k, block)
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +378,7 @@ def kmeans(data: torch.Tensor, k: int, iters: int = 10,
 # ---------------------------------------------------------------------------
 # IVF-PQ (kernel B3)
 # ---------------------------------------------------------------------------
-class IVFPQIndex:
+class IVFPQIndex(BlockSearch):
     """IVF-PQ searched by decode-and-scan, the JAX package's design.
 
     The PQ score ``q · (centroid + Σ_m codeword_m[code_m])`` is the inner
@@ -613,10 +647,9 @@ class IVFPQIndex:
         the coverage makes untraced (the first ``index.wait``);
         ``ivfpq.pruned`` counts the calls that take the gathered route."""
         with span("ivfpq.search", device=True):
-            return self._search(q, k, block, chunk_rows)
+            return self._host(q, k, block, chunk_rows)
 
-    def _search(self, q, k, block, chunk_rows):
-        q = np.asarray(q, np.float32)
+    def _device_results(self, q, k, block, chunk_rows):
         lt = self.LIST_TILE
         dev = self.device
         chunk = min(self.n_pad, chunk_rows or self.CHUNK_ROWS)
@@ -627,17 +660,10 @@ class IVFPQIndex:
         codes_v, ids_v, sub_v, n_scan = (self.codes, self.ids,
                                          self.sub_list, self.n_pad)
         with span("ivfpq.probe", device=True):
-            for s in range(0, len(q), block):
-                blk = q[s:s + block]
-                # only a multi-block search pads its last block (B3
-                # therefore sees any block size from 1 to `block`)
-                pad = block - len(blk) if len(blk) < block \
-                    and len(q) > block else 0
-                if pad:
-                    blk = np.pad(blk, ((0, pad), (0, 0)))
-                qd = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
+            for blk, n in query_blocks(q, block):
+                qd = torch.from_numpy(blk).to(dev)
                 blocks.append({
-                    "qd": qd, "pad": pad,
+                    "qd": qd, "n": n,
                     "bias": _pq_bias_list(qd, self.centroids,
                                           nprobe=self.nprobe),  # (nq, nlist)
                     "v": torch.full((len(blk), keep), -float("inf"),
@@ -675,20 +701,11 @@ class IVFPQIndex:
                     v, i = topk_ip_masked(b["qd"], dec, ids_c, bias_c, keep,
                                           lt)
                     b["v"], b["i"] = _merge_topk(b["v"], b["i"], v, i)
-        outs_d, outs_i = [], []
         for b in blocks:
-            best_v, best_i = b["v"], b["i"]
             if self.refine:
-                best_v, best_i = _pq_refine(b["qd"], self.raw, best_i, k=k)
+                yield _pq_refine(b["qd"], self.raw, b["i"], k=k), b["n"]
             else:
-                best_v, best_i = best_v[:, :k], best_i[:, :k]
-            n = best_v.shape[0] - b["pad"]
-            with span("index.wait"):
-                outs_d.append(best_v[:n].cpu().numpy())
-                outs_i.append(best_i[:n].cpu().numpy())
-        if not outs_d:
-            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
-        return np.concatenate(outs_d), np.concatenate(outs_i)
+                yield (b["v"][:, :k], b["i"][:, :k]), b["n"]
 
     def _probed_rows(self, blocks) -> torch.Tensor:
         """f64 scalar on the card: the real rows of the lists each query
@@ -700,8 +717,7 @@ class IVFPQIndex:
                     self.ids >= 0], minlength=self.nlist)
         total = self._list_rows.new_zeros(())
         for b in blocks:
-            n = b["bias"].shape[0] - b["pad"]
-            total += ((b["bias"][:n] > NEG / 2).long()
+            total += ((b["bias"][:b["n"]] > NEG / 2).long()
                       * self._list_rows).sum()
         return total.double()
 
@@ -818,7 +834,7 @@ def _pq_refine(q, raw, best_i, *, k):
 # ---------------------------------------------------------------------------
 # IVF-SQ8 (no hand-written kernel: the JAX package scans it in XLA)
 # ---------------------------------------------------------------------------
-class IVFSQ8Index:
+class IVFSQ8Index(BlockSearch):
     """IVF with int8 rows (a scale per row) sorted by coarse list, so a
     probed list is one contiguous slice of the store.
 
@@ -876,16 +892,7 @@ class IVFSQ8Index:
         n, dev = len(data), self.device
         q8_flat, scales_flat, _ = _quantize_sq8_host(data, 1, block)
         buf = chunked_device_put(q8_flat, dev)
-        sc_dev = chunked_device_put(scales_flat, dev)
-        # rows per assignment step: its (rows, nlist) f32 similarity stays
-        # within SCORE_BYTES (nlist 8,192 at 53.6 M rows)
-        step = max(1, self.SCORE_BYTES // (4 * self.nlist))
-        assign = np.empty(n, np.int32)
-        for s in range(0, n, step):
-            assign[s:s + step] = _assign_int8_block(
-                buf[s:s + step], sc_dev[s:s + step],
-                self.centroids).cpu().numpy()
-        del sc_dev
+        assign = self._assign(buf, chunked_device_put(scales_flat, dev))
         counts = np.bincount(assign, minlength=self.nlist)
         self.list_cap = int(max(1, counts.max()))
         starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
@@ -913,6 +920,19 @@ class IVFSQ8Index:
         del buf
         self._publish_meta(scales, starts, ids)
 
+    def _assign(self, q8, scales) -> np.ndarray:
+        """Each row's list from its int8 form (host or device arrays), in
+        steps whose (rows, nlist) f32 similarity stays within SCORE_BYTES
+        (nlist 8,192 at 53.6 M rows), on the centroids' device."""
+        step = max(1, self.SCORE_BYTES // (4 * self.nlist))
+        assign = np.empty(len(q8), np.int32)
+        for s in range(0, len(q8), step):
+            assign[s:s + step] = _assign_int8_block(
+                torch.as_tensor(q8[s:s + step]).to(self.device),
+                torch.as_tensor(scales[s:s + step]).to(self.device),
+                self.centroids).cpu().numpy()
+        return assign
+
     def _publish_meta(self, scales, starts, ids) -> None:
         dev = self.device
         self.scales = chunked_device_put(scales, dev, np.float32)
@@ -936,30 +956,38 @@ class IVFSQ8Index:
         idx._trained = True
         return idx
 
+    def probe(self, qd: torch.Tensor) -> torch.Tensor:
+        """The f32 coarse probe of a query block: (rows, nprobe) lists,
+        ties to the lower list."""
+        return topk_low_index(qd @ self.centroids.T, self.nprobe)[1]
+
+    def scan_block(self, qd: torch.Tensor, probes: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The probed slices of this store for a query block, then its top
+        ``min(k, keep)`` (ties to the lower id); −1 where fewer rows were
+        scored. ``keep`` is ``min(2k, nprobe·list_cap)``."""
+        keep = min(2 * k, probes.shape[1] * self.list_cap)
+        bv, bi = _sq8_probe_scan(qd.to(torch.bfloat16), probes, self.vecs8,
+                                 self.scales, self.starts, self.ids,
+                                 cap=self.list_cap, keep=keep,
+                                 score_bytes=self.SCORE_BYTES)
+        d2, sel = topk_low_index(bv, min(k, keep))
+        ids = bi.gather(1, sel)
+        return d2, torch.where(torch.isfinite(d2), ids, -1).to(torch.int32)
+
+    def search_block(self, qd: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One query block: the coarse probe, then ``scan_block``."""
+        if k > self.nprobe * self.list_cap:
+            raise ValueError(
+                f"k {k} exceeds the {self.nprobe * self.list_cap} rows that "
+                f"nprobe {self.nprobe} slices of {self.list_cap} rows score")
+        return self.scan_block(qd, self.probe(qd), k)
+
     @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 64) -> Tuple[np.ndarray, np.ndarray]:
-        q = np.asarray(q, np.float32)
-        outs_d, outs_i = [], []
-        for s in range(0, len(q), block):
-            blk = q[s:s + block]
-            # only a multi-block search pads its last block
-            pad = block - len(blk) if len(blk) < block and len(q) > block \
-                else 0
-            if pad:
-                blk = np.pad(blk, ((0, pad), (0, 0)))
-            d, ids = _ivfsq8_search_block(
-                torch.from_numpy(np.ascontiguousarray(blk)).to(self.device),
-                self.centroids, self.vecs8, self.scales, self.starts,
-                self.ids, k=k, nprobe=self.nprobe, cap=self.list_cap,
-                score_bytes=self.SCORE_BYTES)
-            n = len(blk) - pad
-            with span("index.wait"):
-                outs_d.append(d[:n].cpu().numpy())
-                outs_i.append(ids[:n].cpu().numpy())
-        if not outs_d:
-            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
-        return np.concatenate(outs_d), np.concatenate(outs_i)
+        return self._host(q, k, block)
 
 
 def _sq8_probe_scan(qb, probes, vecs8, scales, starts_arr, ids_arr, *,
@@ -995,24 +1023,6 @@ def _sq8_probe_scan(qb, probes, vecs8, scales, starts_arr, ids_arr, *,
     dup = torch.cat([torch.zeros_like(bi[:, :1], dtype=torch.bool),
                      bi[:, 1:] == bi[:, :-1]], dim=1)
     return bv.masked_fill(dup | (bi < 0), -float("inf")), bi
-
-
-def _ivfsq8_search_block(q, centroids, vecs8, scales, starts_arr, ids_arr,
-                         *, k, nprobe, cap, score_bytes):
-    """One query block: f32 coarse probe (ties to the lower list), the
-    probed-slice scan, the final top-k (ties to the lower id); −1 where
-    fewer than k rows were scored."""
-    keep = min(2 * k, nprobe * cap)
-    if keep < k:
-        raise ValueError(f"k {k} exceeds the {nprobe * cap} rows that "
-                         f"nprobe {nprobe} slices of {cap} rows score")
-    _, probes = topk_low_index(q @ centroids.T, nprobe)    # (nq, nprobe)
-    bv, bi = _sq8_probe_scan(q.to(torch.bfloat16), probes, vecs8, scales,
-                             starts_arr, ids_arr, cap=cap, keep=keep,
-                             score_bytes=score_bytes)
-    d2, sel = topk_low_index(bv, k)
-    ids = bi.gather(1, sel)
-    return d2, torch.where(torch.isfinite(d2), ids, -1).to(torch.int32)
 
 
 def _device_permute_rows(src: torch.Tensor, order: np.ndarray,

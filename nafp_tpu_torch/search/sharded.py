@@ -6,20 +6,22 @@ DB rows over its ``('data',)`` mesh with ``shard_map``; here one process
 holds a list of devices, one shard per entry (FAISS ``IndexShards``'
 model). The default list is every local card (``[cpu]`` on the CPU); an
 explicit list may repeat a device, which puts several shards on one card
-(or on the CPU). A search sends the query block to every shard, launches
-every shard's scan before it reads any result, brings the R k-sized
-candidate sets to the first device and merges them there with one top-k
-over the R·k candidates: ties go to the lower shard, and within a shard to
-the lower row, so the flat indexes break ties by the lower row as the
-single-device ones do.
+(or on the CPU). Each shard is a single-device index on its device, and a
+sharded index is a ``BlockSearch`` whose query block is: the block on the
+first device, every shard's block (all launched before any result is
+read), the R k-sized candidate sets brought to the first device and merged
+there with one top-k over the R·k candidates (``_merge``). Ties go to the
+lower shard, and within a shard to the lower row, so the flat indexes
+break ties by the lower row as the single-device ones do.
 
-- ``ShardedFlatIndex``: contiguous row ranges, each searched by the
-  single-device ``FlatIndex``'s exact inner-product route (kernel B1 at
-  ``FlatIndex.PALLAS_MIN_ROWS`` rows a shard and above).
+- ``ShardedFlatIndex``: contiguous row ranges, each a ``FlatIndex`` (its
+  own route: kernel B1 at ``FlatIndex.PALLAS_MIN_ROWS`` rows a shard and
+  above).
 - ``ShardedSQ8FlatIndex``: the int8 store padded to a multiple of R ×
-  ``BLK`` rows and split into R equal shards, each scanned by kernel B2.
+  ``BLK`` rows and split into R equal ``SQ8FlatIndex`` shards (kernel B2).
 - ``ShardedIVFSQ8Index``: within each inverted list, row j goes to shard
-  j mod R; each shard scans ``ceil(cap/R)`` rows per probed list.
+  j mod R; each shard is an ``IVFSQ8Index`` store scanning
+  ``ceil(cap/R)`` rows per probed list.
 
 Stores interchange: each class persists the single-device ``.npz`` format
 (``SQ8FlatIndex`` / ``IVFSQ8Index``, the JAX package's keys), and loads a
@@ -38,11 +40,11 @@ import torch
 
 from nafp_tpu_torch.device import DeviceLike, chunked_device_put
 from nafp_tpu_torch.parallel.mesh import local_devices
-from nafp_tpu_torch.search.index import (NEG, FlatIndex, IVFSQ8Index,
-                                         _assign_int8_block, _pad_sq8_store,
-                                         _quantize_sq8_host, _sq8_probe_scan)
-from nafp_tpu_torch.search.topk import topk_ip, topk_ip_sq8, topk_low_index
-from nafp_tpu_torch.utils.profiling import span, spanned
+from nafp_tpu_torch.search.index import (BlockSearch, FlatIndex, IVFSQ8Index,
+                                         SQ8FlatIndex, _pad_sq8_store,
+                                         _quantize_sq8_host)
+from nafp_tpu_torch.search.topk import topk_low_index
+from nafp_tpu_torch.utils.profiling import spanned
 
 Devices = Optional[Sequence[DeviceLike]]
 
@@ -70,34 +72,19 @@ def _merge(parts: List[Tuple[torch.Tensor, torch.Tensor]], k: int
     return vv, i.gather(1, sel)
 
 
-def _query_blocks(q: np.ndarray, block: int):
-    """(block, n_real) pairs of a query array; only a multi-block search
-    pads its last block (the single-device indexes' rule)."""
-    for s in range(0, len(q), block):
-        blk = q[s:s + block]
-        pad = block - len(blk) if len(blk) < block and len(q) > block else 0
-        if pad:
-            blk = np.pad(blk, ((0, pad), (0, 0)))
-        yield np.ascontiguousarray(blk), len(blk) - pad
-
-
-def _concat(outs_d, outs_i, k):
-    if not outs_d:
-        return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
-    return np.concatenate(outs_d), np.concatenate(outs_i)
-
-
-class ShardedFlatIndex:
+class ShardedFlatIndex(BlockSearch):
     """Exact inner-product search over row-range shards of an f32 DB.
 
     Shard r holds rows ``[r·S, (r+1)·S)``, S = ceil(N/R), in a
     ``FlatIndex(metric='ip')`` on its device; scores are inner products,
     as the JAX package's ``ShardedFlatIndex`` returns. The results equal
-    ``FlatIndex(db, 'ip')``'s."""
+    ``FlatIndex(db, 'ip')``'s. A query block is the smallest of the
+    shards' blocks."""
 
     def __init__(self, db: np.ndarray, devices: Devices = None,
                  device: DeviceLike = None):
         self.devices = shard_devices(devices, device)
+        self.device = self.devices[0]
         r = len(self.devices)
         n = len(db)
         self.ntotal = n
@@ -107,49 +94,38 @@ class ShardedFlatIndex:
                                  device=d)
                        for o, d in zip(self.offsets, self.devices)]
 
-    def _block(self, block: int) -> int:
-        if all(s._use_kernel() for s in self.shards):
-            return min(block, 512)
-        return min(s._xla_block_cap(block) for s in self.shards)
+    def block_rows(self, block: int) -> int:
+        return min(s.block_rows(block) for s in self.shards)
+
+    def search_block(self, qd: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        parts = []
+        for shard, off in zip(self.shards, self.offsets):
+            v, pos = shard.search_block(qd.to(shard.device), k)
+            parts.append((v, torch.where(pos < 0, -1, pos.long() + off)))
+        return _merge(parts, k)
 
     @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 2048) -> Tuple[np.ndarray, np.ndarray]:
-        q = np.asarray(q, np.float32)
-        outs_d, outs_i = [], []
-        for blk, n in _query_blocks(q, self._block(block)):
-            qt = torch.from_numpy(blk)
-            parts = []
-            for shard, off in zip(self.shards, self.offsets):
-                qd = qt.to(shard.device)
-                if shard._use_kernel():
-                    v, pos = topk_ip(qd, shard.db, k)
-                else:
-                    v, pos = shard._search_block(qd, k)
-                gid = torch.where(pos < 0, -1, pos.long() + off)
-                parts.append((v, gid))
-            v, i = _merge(parts, k)
-            with span("index.wait"):
-                outs_d.append(v[:n].cpu().numpy())
-                outs_i.append(i[:n].to(torch.int32).cpu().numpy())
-        return _concat(outs_d, outs_i, k)
+        return self._host(q, k, block)
 
 
-class ShardedSQ8FlatIndex:
+class ShardedSQ8FlatIndex(BlockSearch):
     """Exact int8 full scan with the store split over the devices.
 
     The store (``SQ8FlatIndex``'s: int8 rows, f32 scales, int32 ids, −1 on
     pad rows) is padded to a multiple of R × ``BLK`` rows and cut into R
-    equal shards; each is scanned by kernel B2 (``topk_ip_sq8``) with its
-    row mask, its positions mapped through its ids (−1 for a masked or
-    empty slot), and the R candidate sets merged."""
+    equal shards, each an ``SQ8FlatIndex`` on its device scanned by kernel
+    B2 (``topk_ip_sq8``); the R candidate sets are merged."""
 
-    BLK = 2048
+    BLK = SQ8FlatIndex.BLK
 
     def __init__(self, d: int = 128, devices: Devices = None,
                  device: DeviceLike = None):
         self.d = d
         self.devices = shard_devices(devices, device)
+        self.device = self.devices[0]
         self.ntotal = 0
 
     def train(self, data, **_) -> None:    # factory-contract no-op
@@ -175,12 +151,10 @@ class ShardedSQ8FlatIndex:
         self.shards = []
         for j, dev in enumerate(self.devices):
             sl = slice(j * rows, (j + 1) * rows)
-            sid = chunked_device_put(ids[sl], dev, np.int32)
-            self.shards.append(dict(
-                vecs8=chunked_device_put(q8[sl], dev),
-                scales=chunked_device_put(scales[sl], dev, np.float32),
-                ids=sid,
-                rmask=torch.where(sid >= 0, 0.0, NEG).to(torch.float32)))
+            shard = SQ8FlatIndex(d=self.d, device=dev)
+            shard.ntotal = int((ids[sl] >= 0).sum())
+            shard._publish(q8[sl], scales[sl], ids[sl])
+            self.shards.append(shard)
 
     @classmethod
     def load(cls, path: str, devices: Devices = None,
@@ -196,38 +170,30 @@ class ShardedSQ8FlatIndex:
         idx._publish(q8, scales, ids)
         return idx
 
+    def block_rows(self, block: int) -> int:
+        return self.shards[0].block_rows(block)
+
+    def search_block(self, qd: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        v, i = _merge([s.search_block(qd.to(s.device), k)
+                       for s in self.shards], k)
+        return v, torch.where(i >= 0, i, -1)
+
     @spanned("index.search")
     def search(self, q: np.ndarray, k: int,
                block: int = 1024) -> Tuple[np.ndarray, np.ndarray]:
-        q = np.asarray(q, np.float32)
-        block = min(block, (16 << 20) // (self.BLK * 4))
-        outs_d, outs_i = [], []
-        for blk, n in _query_blocks(q, block):
-            qt = torch.from_numpy(blk)
-            parts = []
-            for sh in self.shards:
-                v, pos = topk_ip_sq8(qt.to(sh["ids"].device), sh["vecs8"],
-                                     sh["scales"], sh["rmask"], k)
-                gid = torch.where(pos < 0, -1,
-                                  sh["ids"][pos.clamp(min=0).long()])
-                parts.append((v, gid))
-            v, i = _merge(parts, k)
-            i = torch.where(i >= 0, i, -1)
-            with span("index.wait"):
-                outs_d.append(v[:n].cpu().numpy())
-                outs_i.append(i[:n].cpu().numpy())
-        return _concat(outs_d, outs_i, k)
+        return self._host(q, k, block)
 
 
 class ShardedIVFSQ8Index(IVFSQ8Index):
     """IVF-SQ8 with every inverted list dealt round-robin over the devices.
 
-    Within each coarse list, row j goes to shard j mod R; each shard keeps
-    its share of every list contiguously (list order), padded by
-    ``list_cap = ceil(cap/R)`` rows. A search probes the lists once on the
-    first device (the f32 coarse probe, ties to the lower list), each
-    shard scans ``list_cap`` rows per probed list (``_sq8_probe_scan``,
-    keeping ``min(2k, nprobe·list_cap)``), takes its top-k, and the
+    Within each coarse list, row j goes to shard j mod R; each shard is an
+    ``IVFSQ8Index`` store on its device holding its share of every list
+    contiguously (list order), padded by ``list_cap = ceil(cap/R)`` rows.
+    A query block is probed once on the first device (the f32 coarse
+    probe, ties to the lower list), each shard scans ``list_cap`` rows per
+    probed list and takes its top-k (``IVFSQ8Index.scan_block``), and the
     candidate sets are merged; −1 where the score is not finite. Every
     probed row is scanned once, as in the single-device index."""
 
@@ -248,13 +214,7 @@ class ShardedIVFSQ8Index(IVFSQ8Index):
             raise RuntimeError("train() before add()")
         n = len(data)
         q8, scales, _ = _quantize_sq8_host(data, 1, block)
-        step = max(1, self.SCORE_BYTES // (4 * self.nlist))
-        assign = np.empty(n, np.int32)
-        for s in range(0, n, step):
-            assign[s:s + step] = _assign_int8_block(
-                torch.from_numpy(q8[s:s + step]).to(self.device),
-                torch.from_numpy(scales[s:s + step]).to(self.device),
-                self.centroids).cpu().numpy()
+        assign = self._assign(q8, scales)
         counts = np.bincount(assign, minlength=self.nlist)
         cap = int(max(1, counts.max()))
         order = np.argsort(assign, kind="stable")
@@ -296,12 +256,13 @@ class ShardedIVFSQ8Index(IVFSQ8Index):
             vecs8[:nr] = q8_sorted[sel]
             scales[:nr] = scales_sorted[sel]
             ids[:nr] = ids_sorted[sel]
-            starts = np.concatenate([[0], np.cumsum(local_counts[j])[:-1]])
-            self.shards.append(dict(
-                vecs8=chunked_device_put(vecs8, dev),
-                scales=chunked_device_put(scales, dev, np.float32),
-                starts=chunked_device_put(starts, dev, np.int64),
-                ids=chunked_device_put(ids, dev, np.int32)))
+            shard = IVFSQ8Index(d=self.d, nlist=self.nlist,
+                                nprobe=self.nprobe, device=dev)
+            shard.ntotal, shard.list_cap = nr, self.list_cap
+            shard.vecs8 = chunked_device_put(vecs8, dev)
+            shard._publish_meta(scales, np.concatenate(
+                [[0], np.cumsum(local_counts[j])[:-1]]), ids)
+            self.shards.append(shard)
 
     @classmethod
     def load(cls, path: str, nprobe: int = 40, devices: Devices = None,
@@ -325,29 +286,9 @@ class ShardedIVFSQ8Index(IVFSQ8Index):
                                  int(z["list_cap"]))
         return idx
 
-    @spanned("index.search")
-    def search(self, q: np.ndarray, k: int,
-               block: int = 64) -> Tuple[np.ndarray, np.ndarray]:
-        q = np.asarray(q, np.float32)
-        keep = min(2 * k, self.nprobe * self.list_cap)
-        kk = min(k, keep)
-        outs_d, outs_i = [], []
-        for blk, n in _query_blocks(q, block):
-            qd = torch.from_numpy(blk).to(self.device)
-            _, probes = topk_low_index(qd @ self.centroids.T, self.nprobe)
-            qb = qd.to(torch.bfloat16)
-            parts = []
-            for sh in self.shards:
-                dev = sh["ids"].device
-                bv, bi = _sq8_probe_scan(
-                    qb.to(dev), probes.to(dev), sh["vecs8"], sh["scales"],
-                    sh["starts"], sh["ids"], cap=self.list_cap, keep=keep,
-                    score_bytes=self.SCORE_BYTES)
-                v, sel = topk_low_index(bv, kk)
-                parts.append((v, bi.gather(1, sel)))
-            v, i = _merge(parts, k)
-            i = torch.where(torch.isfinite(v), i, -1).to(torch.int32)
-            with span("index.wait"):
-                outs_d.append(v[:n].cpu().numpy())
-                outs_i.append(i[:n].cpu().numpy())
-        return _concat(outs_d, outs_i, k)
+    def search_block(self, qd: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        probes = self.probe(qd)
+        v, i = _merge([s.scan_block(qd.to(s.device), probes.to(s.device), k)
+                       for s in self.shards], k)
+        return v, torch.where(torch.isfinite(v), i, -1).to(torch.int32)

@@ -1,7 +1,8 @@
 """Port parity: the sharded indexes of nafp_tpu_torch (search/sharded.py).
 
 The nine tests of ``tests/test_sharded_search.py``, on 8 CPU shards (one
-device repeated), then the port against the JAX package's sharded indexes
+device repeated; its query-block test is the ``l2-sharded`` case of
+``tests/test_torch_query_blocks.py``), then the port against the JAX package's sharded indexes
 on the 8-device CPU mesh of ``tests/conftest.py`` with the same seed-made
 inputs (JAX's kernel B2 in interpret mode, as its sharded index runs it
 off the TPU):
@@ -62,16 +63,6 @@ def test_sharded_equals_flat(rng):
     assert (si >= 0).all() and (si < 4001).all()     # no pad leakage
 
 
-def test_sharded_query_blocks(rng):
-    db = rng.standard_normal((1024, 32)).astype(np.float32)
-    q = rng.standard_normal((300, 32)).astype(np.float32)
-    idx = ShardedFlatIndex(db, devices=SHARDS)
-    v1, i1 = idx.search(q, k=5, block=128)
-    v2, i2 = idx.search(q, k=5, block=512)
-    np.testing.assert_allclose(v1, v2, atol=1e-6)
-    np.testing.assert_array_equal(i1, i2)
-
-
 def test_sharded_ivfsq8_matches_single_device(rng):
     """nprobe == nlist: both layouts scan every row, so the sharded index
     reproduces the single-device one (same centroids: the same seed on
@@ -126,7 +117,7 @@ def test_sharded_sq8flat_matches_single_device(rng):
     sharded = ShardedSQ8FlatIndex(devices=SHARDS)
     sharded.add(db)
     assert len(sharded.shards) == 8
-    rows = {len(s["vecs8"]) for s in sharded.shards}
+    rows = {len(s.vecs8) for s in sharded.shards}
     assert len(rows) == 1 and rows.pop() % ShardedSQ8FlatIndex.BLK == 0
     mv, mi = sharded.search(q, k=5)
     np.testing.assert_array_equal(mi, si)
