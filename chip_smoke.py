@@ -188,6 +188,8 @@ RR_AGREE_SLACK = 0.02
 # row widths off the main path that B3 and B4b also take: 256 (their second
 # K extent) and 20 (a multiple of 4 only: narrower cp.async copies)
 OTHER_D = (256, 20)
+# rows of one chunk of the --gt device pass (extras/run_100x_protocol.py)
+GT_CHUNK_ROWS = 2_097_152
 # Phase 7, the training path: its own synthetic corpus (120 train songs of
 # SONG_SEC s, 30 validation songs, 20 query/db pairs, 20 dummy songs)
 TRAIN_SONGS, TRAIN_QUERY, TRAIN_DUMMY = 120, 20, 20
@@ -392,17 +394,27 @@ def scan_residency(lib, bq, n, d, k, *flags):
     import torch
     from nafp_tpu_torch import kernels
     from nafp_tpu_torch.search import topk as T
-    smem, per_sm, regs = kernels.occupancy(lib, d, k, *flags)
+    b1 = lib == "topk_f32"
+    info = kernels.occupancy(lib, d, k, *flags, n_out=6 if b1 else 3)
+    smem, per_sm, regs = info[:3]
+    qb = info[3] if b1 else T.QB
     sms = T._sm_count(torch.device("cuda", 0))
-    n_chunks = T._plan_chunks(bq, n, sms, per_sm)[1]
-    return dict(smem=smem, ctas_per_sm=per_sm, regs=regs,
-                grid=n_chunks * -(-bq // T.QB))
+    n_chunks = T._plan_chunks(bq, n, sms, per_sm, qb)[1]
+    r = dict(smem=smem, ctas_per_sm=per_sm, regs=regs,
+             grid=n_chunks * -(-bq // qb))
+    if b1:   # queries per CTA, spilled bytes per thread, ring stages
+        r.update(queries_per_cta=qb, local_bytes=info[4], stages=info[5])
+    return r
 
 
 def log_residency(tag, r):
+    more = "".join(f", {r[key]} {what}" for key, what in (
+        ("queries_per_cta", "queries per CTA"),
+        ("local_bytes", "B local memory (spills) per thread"),
+        ("stages", "ring stages")) if key in r)
     log(f"    residency {tag}: {r['smem']} B shared memory per CTA, "
         f"{r['ctas_per_sm']} CTAs per SM, {r['regs']} registers, "
-        f"{r['grid']} CTAs in the grid")
+        f"{r['grid']} CTAs in the grid{more}")
 
 
 def unit_rows(n, d, gen, device):
@@ -449,6 +461,20 @@ def phase_kernels(dev):
                          4 * K))
     errs.append(b1_check("B1 k>N", unit_rows(9, 128, gen, dev),
                          unit_rows(30, 128, gen, dev), 50))
+    # query blocks around the CTA's query tile, and the sizes the protocol
+    # sends (1-segment blocks of 128, 384, 512)
+    for bq in (63, 65, 384):
+        errs.append(b1_check(f"B1 Bq={bq} k={K} N={N_DB_ROWS}",
+                             unit_rows(bq, 128, gen, dev), db, K))
+    # a padded block, as the index sends a multi-block search's last one:
+    # zero queries tie every row, and the lowest rows win
+    padded = torch.cat([unit_rows(129, 128, gen, dev),
+                        torch.zeros(383, 128, device=dev)])
+    errs.append(b1_check(f"B1 padded Bq=512 (383 zero) k={K} N={N_DB_ROWS}",
+                         padded, db, K))
+    if not bool((T.topk_ip(padded, db, K)[1][129:].long()
+                 == torch.arange(K, device=dev)).all()):
+        raise AssertionError("B1: a zero query did not return rows 0..k-1")
     # ties across chunks: rows 32,768 apart repeat each other (other
     # chunks), and equal scores meet the shared bound
     half = unit_rows(32_768, 128, gen, dev)
@@ -468,6 +494,9 @@ def phase_kernels(dev):
     q = unit_rows(512, 128, gen, dev)
     ms = time_ms(lambda: T.topk_ip(q, db, K), 20)
     ms80 = time_ms(lambda: T.topk_ip(q, db, 4 * K), 20)
+    ms_bq = {bq: time_ms(lambda: T.topk_ip(q[:bq], db, K), 20)
+             for bq in (128, 384)}
+    ms_padded = time_ms(lambda: T.topk_ip(padded, db, K), 20)
     plain_ms = time_ms(lambda: T.topk_ip_plain(q, db, K), 5)
     lib_ms, lib_ms_k80 = (time_ms(lambda: torch.topk(
         torch.matmul(q, db.T), k, dim=1), 10) for k in (K, 4 * K))
@@ -488,12 +517,30 @@ def phase_kernels(dev):
         if flops / PEAK_TF32 >= nbytes / PEAK_BYTES else "bytes",
         library_ms=lib_ms, library_ms_k80=lib_ms_k80,
         tf32_tflops=flops / ms / 1e9, residency=residency,
-        shape="Bq 512, N 619500, d 128, k 20")
+        shape="Bq 512, N 619500, d 128, k 20",
+        ms_bq128=ms_bq[128], ms_bq384=ms_bq[384], ms_padded=ms_padded)
     log(f"  B1 @ Bq 512: kernel {ms:.3f} ms (k {K}), {ms80:.3f} ms (k "
         f"{4 * K}), plain {plain_ms:.3f} ms, matmul+topk {lib_ms:.3f} ms "
         f"({lib_ms_k80:.3f} ms at k {4 * K}), bound {bound:.3f} ms, "
-        f"{flops / ms / 1e9:.1f} TFLOP/s of TF32")
-    del db
+        f"{flops / ms / 1e9:.1f} TFLOP/s of TF32; Bq 128 {ms_bq[128]:.3f} "
+        f"ms, Bq 384 {ms_bq[384]:.3f} ms, padded Bq 512 {ms_padded:.3f} ms")
+    del db, padded
+    # one 2,097,152-row chunk of the --gt device pass over the 53.6 M store
+    # (extras/run_100x_protocol.py), at its k 1 and at the protocol's k
+    big = unit_rows(GT_CHUNK_ROWS, 128, gen, dev)
+    for k in (1, K):
+        errs.append(b1_check(f"B1 Bq=512 k={k} N={GT_CHUNK_ROWS}", q, big,
+                             k))
+    gt_ms = {k: time_ms(lambda: T.topk_ip(q, big, k), 10) for k in (1, K)}
+    gt_bound = 3 * 2.0 * 512 * GT_CHUNK_ROWS * 128 / PEAK_TF32 * 1e3
+    rec["topk_ip"].update(gt_chunk_ms_k1=gt_ms[1], gt_chunk_ms_k20=gt_ms[K],
+                          gt_chunk_bound_ms=gt_bound,
+                          max_abs_err=max(errs))
+    log_residency(f"B1 {GT_CHUNK_ROWS} rows k{K}",
+                  scan_residency("topk_f32", 512, GT_CHUNK_ROWS, 128, K))
+    log(f"  B1 @ Bq 512 x {GT_CHUNK_ROWS}: {gt_ms[1]:.3f} ms (k 1), "
+        f"{gt_ms[K]:.3f} ms (k {K}), bound {gt_bound:.3f} ms")
+    del big
 
     # --- B2 --------------------------------------------------------------
     x = unit_rows(SQ8_ROWS, 128, gen, dev)

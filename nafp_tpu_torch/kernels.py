@@ -115,19 +115,23 @@ def function(name: str, argtypes, suffix: str = "") -> ctypes._CFuncPtr:
     return fn
 
 
+OCCUPANCY_SLOTS = 8   # ints an occupancy query may write (B1 writes 6)
+
+
 def occupancy(name: str, *args: int, n_out: int = 3) -> List[int]:
     """What ``nafp_<name>_occupancy(*args, info)`` of kernel library
     ``name`` writes into info[0 .. n_out-1], for the current CUDA device:
     a scan's shared memory per CTA in bytes, the CTAs one SM holds, its
-    registers per thread (and, for B4b, the CTAs of its grid)."""
+    registers per thread (for B4b, then the CTAs of its grid; for B1, its
+    queries per CTA, local memory per thread in bytes and ring stages)."""
     fn = getattr(load(name), f"nafp_{name}_occupancy")
     fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    info = (ctypes.c_int * n_out)()
+    info = (ctypes.c_int * OCCUPANCY_SLOTS)()
     err = fn(*args, info)
     if err:
         raise RuntimeError(f"nafp_{name}_occupancy{args}: CUDA error {err}")
-    return list(info)
+    return list(info)[:n_out]
 
 
 def all_on_cpu(*ts) -> bool:

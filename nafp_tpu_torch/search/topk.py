@@ -5,8 +5,9 @@ Counterpart of ``nafp_tpu/search/pallas_topk.py``:
 
 - ``topk_ip`` (kernel B1, ``csrc/topk_f32.cu``) replaces ``topk_ip_pallas``:
   exact f32 top-k of ``q · dbᵀ``, its products f32-accurate on the TF32
-  tensor cores (3xTF32), with B3's selection and shared bound and a grid of
-  one wave;
+  tensor cores (3xTF32 on ``wgmma``, fed by a producer warp's bulk copies),
+  with B3's selection and shared bound and a grid of one wave of CTAs of
+  ``qb`` queries each (the kernel's occupancy query says how many);
 - ``topk_ip_sq8`` (kernel B2, ``csrc/topk_sq8.cu``) replaces
   ``topk_ip_sq8_pallas``: exact top-k over an int8 store, dequantised on
   the fly as ``(bf16(q) · row) · scale[row] + rmask[row]``. It runs the
@@ -45,7 +46,7 @@ from nafp_tpu_torch.kernels import all_on_cpu
 NEG = -1e30
 MAX_K = 128                 # csrc/limits.cuh MAX_K
 MAX_D = 256                 # csrc/limits.cuh MAX_D
-QB = 64                     # queries per scan CTA (every scan)
+QB = 64                     # queries per scan CTA (B2, B3, B4a; B1 asks)
 RB = 64                     # DB rows per scan tile (every scan)
 # B3's scan fits two CTAs per SM up to k 80 at d <= 128
 # (csrc/topk_masked.cu); one wave
@@ -202,22 +203,23 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _grid(bq: int, n: int, device: torch.device,
-          ctas_per_sm: int) -> Tuple[int, int]:
+def _grid(bq: int, n: int, device: torch.device, ctas_per_sm: int,
+          qb: int = QB) -> Tuple[int, int]:
     """(chunk_rows, n_chunks) of a scan on ``device`` at ``ctas_per_sm``
-    scan CTAs per SM: B3's ``MASKED_CTAS_PER_SM``; B1's and the sq8
-    scan's, the CTAs one SM holds (``_resident``)."""
-    return _plan_chunks(bq, n, _sm_count(device), ctas_per_sm)
+    scan CTAs per SM of ``qb`` queries each: B3's ``MASKED_CTAS_PER_SM``;
+    B1's and the sq8 scan's, the CTAs one SM holds (``_resident``,
+    ``_b1_shape``)."""
+    return _plan_chunks(bq, n, _sm_count(device), ctas_per_sm, qb)
 
 
-def _plan_chunks(bq: int, n: int, sms: int, ctas_per_sm: int
-                 ) -> Tuple[int, int]:
+def _plan_chunks(bq: int, n: int, sms: int, ctas_per_sm: int,
+                 qb: int = QB) -> Tuple[int, int]:
     """(chunk_rows, n_chunks): at most ``ctas_per_sm * sms`` scan CTAs of
-    QB queries each (the chunk count is rounded down: a second wave of a
-    few CTAs would nearly double the time), so every SM has work even when
-    there are few query blocks; at least one chunk, of whole RB-row
+    ``qb`` queries each (the chunk count is rounded down: a second wave of
+    a few CTAs would nearly double the time), so every SM has work even
+    when there are few query blocks; at least one chunk, of whole RB-row
     tiles."""
-    qblocks = -(-bq // QB)
+    qblocks = -(-bq // qb)
     tiles = max(1, -(-n // RB))
     n_chunks = max(1, min(tiles, ctas_per_sm * sms // qblocks))
     chunk_rows = -(-tiles // n_chunks) * RB
@@ -231,6 +233,16 @@ def _resident(device_index: int, lib: str, *args: int) -> int:
     from nafp_tpu_torch import kernels
     with torch.cuda.device(device_index):
         return kernels.occupancy(lib, *args)[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _b1_shape(device_index: int, d: int, k: int) -> Tuple[int, int]:
+    """(CTAs one SM holds, queries per CTA) of B1's scan at (d, k) on CUDA
+    device ``device_index`` (its occupancy query)."""
+    from nafp_tpu_torch import kernels
+    with torch.cuda.device(device_index):
+        info = kernels.occupancy("topk_f32", d, k, n_out=4)
+    return info[1], info[3]
 
 
 _ARGTYPES = {
@@ -249,17 +261,17 @@ def _lib_fn(name: str):
 
 
 def _launch(fn, counts: Dict[str, int], counter: str, q: torch.Tensor,
-            tensors, n: int, k: int, ctas_per_sm: int, extra=(), scratch=()
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            tensors, n: int, k: int, ctas_per_sm: int, extra=(), scratch=(),
+            qb: int = QB) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch a scan + merge C entry point ``fn``; ``extra`` are its int
     arguments after k, ``scratch`` its tensors after n_chunks, and the
-    grid asks for ``ctas_per_sm`` scan CTAs per SM. Adds one to
-    ``counts[counter]`` once it launched."""
+    grid asks for ``ctas_per_sm`` scan CTAs per SM of ``qb`` queries each.
+    Adds one to ``counts[counter]`` once it launched."""
     bq, d = q.shape
     dev = q.device
     if n > MAX_ROWS:
         raise ValueError(f"{n} rows: a scan takes at most {MAX_ROWS}")
-    chunk_rows, n_chunks = _grid(bq, n, dev, ctas_per_sm)
+    chunk_rows, n_chunks = _grid(bq, n, dev, ctas_per_sm, qb)
     part_v = torch.empty((bq, n_chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((bq, n_chunks, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
@@ -302,9 +314,10 @@ def topk_ip(q: torch.Tensor, db: torch.Tensor, k: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k inner product (kernel B1). q (Bq, d) f32, db (N, d) f32,
     on one CUDA device (or both on the CPU: plain version). The grid is one
-    wave of the CTAs an SM holds (the occupancy query), and the chunk CTAs
-    share a per-query admission bound, a (Bq,) scratch filled with NEG.
-    Returns (scores f32, positions int32), each (Bq, k)."""
+    wave of the CTAs an SM holds, each of as many queries as the scan takes
+    at this d (both from the occupancy query), and the chunk CTAs share a
+    per-query admission bound, a (Bq,) scratch filled with NEG. Returns
+    (scores f32, positions int32), each (Bq, k)."""
     _check_k(k)
     if all_on_cpu(q, db):
         return topk_ip_plain(q, db, k)
@@ -316,10 +329,10 @@ def topk_ip(q: torch.Tensor, db: torch.Tensor, k: int
     if bq == 0:
         return (torch.empty((0, k), device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
-    ctas = _resident(q.device.index or 0, "topk_f32", d, k)
+    ctas, qb = _b1_shape(q.device.index or 0, d, k)
     bound = torch.full((bq,), NEG, dtype=torch.float32, device=q.device)
     return _launch(_lib_fn("topk_f32"), LAUNCHES, "topk_ip", q, [db], n, k,
-                   ctas, scratch=[bound])
+                   ctas, scratch=[bound], qb=qb)
 
 
 def topk_ip_sq8(q: torch.Tensor, vecs8: torch.Tensor, scales: torch.Tensor,

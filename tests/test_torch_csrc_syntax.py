@@ -37,7 +37,7 @@ typedef cudaError cudaError_t;
 typedef struct CUstream_st* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
-struct cudaFuncAttributes { int numRegs; };
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -74,6 +74,9 @@ int __ffs(int);
 int atomicAdd(int*, int);
 int atomicMax(int*, int);
 unsigned atomicMin(unsigned*, unsigned);
+int atomicCAS(int*, int, int);
+int atomicExch(int*, int);
+void __threadfence_block();
 int __float_as_int(float);
 unsigned __float_as_uint(float);
 float __uint_as_float(unsigned);

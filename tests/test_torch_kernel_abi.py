@@ -8,6 +8,7 @@ import os
 import re
 import time
 
+import numpy as np
 import pytest
 
 from nafp_tpu_torch import kernels
@@ -138,12 +139,69 @@ def test_chunk_plan(bq, n, sms, ctas):
 
 def test_b1_plan_at_the_protocol_shape():
     """B1 at Bq 512 over the protocol's 619,500 rows on 132 SMs, one CTA
-    per SM (168 registers): 8 query blocks x 16 chunks of 605 tiles = 128
-    CTAs, one wave (the FMA scan asked for 4 per SM: 528 CTAs, two waves
-    of 264)."""
-    chunk_rows, n_chunks = T._plan_chunks(512, 619_500, 132, 1)
+    per SM of 64 queries (d 128): 8 query blocks x 16 chunks of 605 tiles
+    = 128 CTAs, one wave (the FMA scan asked for 4 per SM: 528 CTAs, two
+    waves of 264)."""
+    chunk_rows, n_chunks = T._plan_chunks(512, 619_500, 132, 1, 64)
     assert (chunk_rows, n_chunks) == (38_720, 16)
-    assert n_chunks * -(-512 // T.QB) <= 132
+    assert n_chunks * -(-512 // 64) <= 132
+
+
+# B1's query blocks in the protocol (1-segment blocks of 128, then 384 and
+# 512), one query, a block past one CTA's queries, and the 2,097,152-row
+# chunk of the --gt device pass; 64 queries a CTA at d <= 128, 32 above
+B1_PLANS = [(bq, n, qb) for bq in (1, 63, 65, 128, 384, 512)
+            for n in (30, 5_000, 619_500, 2_097_152) for qb in (64, 32)]
+
+
+@pytest.mark.parametrize("bq,n,qb", B1_PLANS)
+def test_b1_plan_covers_rows_once_in_one_wave(bq, n, qb):
+    """B1's work items, (chunk, query block): their rows are whole 64-row
+    tiles of one chunk, the chunks cover N once, and at most one wave of
+    one CTA per SM is asked for (one chunk at least)."""
+    sms = 132
+    chunk_rows, n_chunks = T._plan_chunks(bq, n, sms, 1, qb)
+    qblocks = -(-bq // qb)
+    assert chunk_rows % T.RB == 0
+    covered = np.zeros(n, np.int32)
+    for c in range(n_chunks):
+        covered[c * chunk_rows:min(n, (c + 1) * chunk_rows)] += 1
+    assert (covered == 1).all()
+    assert n_chunks * qblocks <= sms or n_chunks == 1
+    # with tiles to spare, rounding chunks to whole tiles leaves the wave
+    # at least 7/8 full
+    if -(-n // T.RB) >= 16 * (sms // qblocks):
+        assert n_chunks * qblocks >= sms * 7 // 8
+
+
+def test_b1_plan_by_block_size():
+    """The protocol's three block sizes fill 132 SMs: 2 x 66, 6 x 22 and
+    8 x 16 CTAs at d 128; at d 256 (32 queries a CTA) 16 x 8 at Bq 512."""
+    for bq, chunks in ((128, 66), (384, 22), (512, 16)):
+        assert T._plan_chunks(bq, 619_500, 132, 1, 64)[1] == chunks
+    assert T._plan_chunks(512, 619_500, 132, 1, 32)[1] == 8
+
+
+def test_occupancy_reads_at_most_its_slots(monkeypatch):
+    """An occupancy query writes into a buffer of OCCUPANCY_SLOTS ints
+    whatever n_out the caller asks for (B1's writes 7): asking for fewer
+    cannot let the kernel write past the buffer."""
+    seen = {}
+
+    def fake(*args):
+        info = args[-1]
+        seen["len"] = len(info)
+        for i in range(7):
+            info[i] = i + 1
+        return 0
+
+    class Lib:
+        nafp_fake_occupancy = staticmethod(fake)
+
+    monkeypatch.setattr(kernels, "load", lambda name: Lib)
+    assert kernels.occupancy("fake", 128, 20) == [1, 2, 3]
+    assert kernels.occupancy("fake", 128, 20, n_out=4) == [1, 2, 3, 4]
+    assert seen["len"] == kernels.OCCUPANCY_SLOTS >= 7
 
 
 def test_b3_plan_at_the_protocol_shape():

@@ -280,6 +280,77 @@ def test_card_row_width_rule(d, ok):
         T._check_d(20, 16)
 
 
+# B1's wgmma scan on the card: query blocks around its 64-query CTA (32 at
+# d 256) and the protocol's block sizes; N below k, N not a multiple of the
+# 64-row tile, N past one chunk; d 4, 36, 128, 256; k 1, 20, 80, 128; rows
+# repeated across chunks (the lower twin wins each tie); every score
+# negative; half the queries zero (a padded block: every row ties, the
+# lowest rows win). Standard-normal rows: scores up to ~50-80, where one
+# TF32 pass or bf16x3 would miss ATOL.
+B1_GPU_CASES = [
+    # bq, n, d, k, case
+    (1, 5_000, 128, 20, ""),
+    (63, 70_000, 128, 20, ""),
+    (64, 70_000, 4, 1, ""),
+    (65, 70_000, 128, 80, ""),
+    (128, 619_500, 128, 20, ""),
+    (384, 619_500, 128, 20, ""),
+    (512, 619_500, 128, 128, ""),
+    (512, 619_500, 128, 20, "negative"),
+    (7, 50, 128, 80, ""),
+    (33, 1_000, 36, 20, ""),
+    (128, 65_536, 128, 20, "twins"),
+    (200, 65_536, 256, 80, "twins"),
+    (512, 70_001, 128, 128, "negative"),
+    (65, 3, 256, 1, ""),
+    (512, 70_000, 128, 20, "zeros"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bq,n,d,k,case", B1_GPU_CASES)
+def test_b1_scan_matches_plain_on_gpu(bq, n, d, k, case):
+    """B1 (3xTF32 on wgmma) against its plain version on the card: -1 at
+    the same slots, scores within ATOL, the float64 scores at the kernel's
+    ids equal to the plain scores within ATOL, sorted, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(bq * 7 + n + d + k)
+    qn, dbn = _rand(rng, (bq, d)), _rand(rng, (n, d))
+    if case == "negative":
+        qn, dbn = -np.abs(qn), np.abs(dbn)
+    if case == "twins":
+        dbn[n // 2:] = dbn[:n // 2]
+    if case == "zeros":
+        qn[bq // 2:] = 0.0
+    q, db = torch.from_numpy(qn).to(dev), torch.from_numpy(dbn).to(dev)
+    T.reset_launches()
+    v, i = T.topk_ip(q, db, k)
+    assert T.LAUNCHES["topk_ip"] == 1
+    pv, pi = T.topk_ip_plain(q, db, k)
+    ok = pi >= 0
+    assert torch.equal(i < 0, pi < 0)
+    assert int(ok.sum(1).min()) == min(k, n)
+    assert float((v - pv).abs()[ok].max()) <= ATOL
+    at = torch.einsum("bd,bkd->bk", q.double(),
+                      db.double()[i.clamp(min=0).long()])
+    assert float((at - pv.double()).abs()[ok].max()) <= ATOL
+    vv = torch.where(ok, v, float("-inf"))
+    assert bool((vv[:, :-1] >= vv[:, 1:]).all())
+    got = i.cpu().numpy()
+    assert ((got[:, :min(k, n)] >= 0) & (got[:, :min(k, n)] < n)).all()
+    if case == "negative":
+        assert (v.cpu().numpy()[:, :min(k, n)] < 0).all()
+    if case == "twins":   # the lower twin wins: with a row, its twin
+        for row in got:
+            assert np.isin(row[row >= n // 2] - n // 2, row).all()
+    if case == "zeros":
+        assert (got[bq // 2:] == np.arange(k)).all()
+        assert (v.cpu().numpy()[bq // 2:] == 0).all()
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_gpu():
     """Each CUDA kernel against its plain version on the card, at the main
