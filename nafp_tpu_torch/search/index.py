@@ -645,7 +645,10 @@ class IVFPQIndex(BlockSearch):
         caller's query rows probes) is then computed on the card and
         fetched with the coverage in the one device-to-host copy that
         the coverage makes untraced (the first ``index.wait``);
-        ``ivfpq.pruned`` counts the calls that take the gathered route."""
+        ``ivfpq.pruned`` counts the calls that take the gathered route.
+        With ``refine``, each block's ``_pq_refine`` is the device span
+        ``ivfpq.refine`` and the counter ``ivfpq.refine_rows`` adds the
+        block's real rows times the shortlist width, from shapes."""
         with span("ivfpq.search", device=True):
             return self._host(q, k, block, chunk_rows)
 
@@ -703,7 +706,10 @@ class IVFPQIndex(BlockSearch):
                     b["v"], b["i"] = _merge_topk(b["v"], b["i"], v, i)
         for b in blocks:
             if self.refine:
-                yield _pq_refine(b["qd"], self.raw, b["i"], k=k), b["n"]
+                with span("ivfpq.refine", device=True):
+                    out = _pq_refine(b["qd"], self.raw, b["i"], k=k)
+                count("ivfpq.refine_rows", b["n"] * keep)
+                yield out, b["n"]
             else:
                 yield (b["v"][:, :k], b["i"][:, :k]), b["n"]
 
