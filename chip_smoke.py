@@ -27,7 +27,12 @@ sources in ``nafp_tpu_torch/csrc/``, then:
    at ``640_lamb``'s 68 leaves in three groups (the parameters', moments'
    and trust ratios' widest gaps, two runs bit for bit, launches a step),
    its kernels' device time beside the byte bound and the plain loop's
-   time;
+   time; the re-rank kernel (``rerank_f32``, ``csrc/rerank_f32.cu``)
+   against its plain version at the protocol's block (128 clips x 1, 5 and
+   19 segments x 20 hits of B1 over 619,500 rows), timed beside its byte
+   bound (the DB rows its windows touch, and the inputs), the gathered
+   bytes' time and the plain version's, and both routes' host wall a block
+   (upload, re-rank, copy down);
 3. the serving path through the CLI at full model width (random weights
    from a seed, written in the Flax layout as ``params.npz``): a seeded
    synthetic corpus -> ``generate`` -> a 619,500-row DB (the 10k-song
@@ -285,6 +290,12 @@ LN2D_PARAM_GAP = 1e-4
 LAMB_STEPS, LAMB_LR = 3, 1e-3
 LAMB_RTOL, LAMB_CHANGE_RTOL, LAMB_RATIO_RTOL = 1e-6, 1e-4, 1e-4
 LAMB_BYTES_PER_PARAM = 28     # p, g, m, v read; p, m, v written (f32)
+# The re-rank kernel (csrc/rerank_f32.cu) at the protocol's block: B 128
+# clips x k_probe 20 over the DB rows, at these lengths; its answers'
+# float64 scores within RERANK_SCORE_ATOL of the plain version's (f32 sums
+# of up to 19 x 128 products in another order), ids equal wherever the
+# plain scores are clear of their neighbours by twice that
+RERANK_B, RERANK_SLS, RERANK_SCORE_ATOL = 128, (1, 5, 19), 1e-6
 ACT_COS_MIN = {"int8": 0.98, "fp8": 0.97}
 ACT_COS_MEAN = {"int8": 0.99, "fp8": 0.98}
 # ACT_STORE's top-1 against bf16's on the now_playing checkpoint's rows:
@@ -1392,6 +1403,157 @@ def phase_lamb(dev):
     return out
 
 
+def rerank_scores64(q, hits, n_seg, recon, picks):
+    """float64 sequence scores (B, K) of candidate starts ``picks`` (-inf at
+    no pick)."""
+    import torch
+    from nafp_tpu_torch.search import evaluate as E
+    sl = q.shape[1]
+    p = picks.long()
+    win = (p.clamp(min=0)[:, :, None] + torch.arange(sl, device=p.device)
+           ).clamp(max=recon.shape[0] - 1)
+    s = torch.einsum("bsd,bksd->bk", q.double(), recon[win].double()) \
+        / n_seg[:, None].double()
+    return torch.where(p == E.NO_PICK, -torch.inf, s)
+
+
+def phase_rerank(dev):
+    """The re-rank kernel against its plain version at the protocol's block:
+    RERANK_B clips whose queries are noisy copies of consecutive DB rows
+    (a song), at each length of RERANK_SLS, their segments' 20 hits from
+    B1 over N_DB_ROWS unit rows. Checks: the same empty slots, each
+    answer's float64 score within RERANK_SCORE_ATOL of the plain one's,
+    ids equal where the plain scores are clear of their neighbours. Times
+    (CUDA events): the kernel, beside its bound (the distinct DB rows the
+    valid windows touch and the inputs, read once, and the answers, at
+    PEAK_BYTES) and the gathered windows' bytes at PEAK_BYTES; the plain
+    version (its uploads excluded). Host wall a block of both routes of
+    ``hits_for_block`` past the search (the card's: staging, one upload,
+    one launch, one copy down; the plain: starts on the host, three
+    uploads, the torch ops, two copies down), and the launches counted."""
+    import numpy as np
+    import torch
+    from nafp_tpu_torch.search import evaluate as E
+    from nafp_tpu_torch.search import topk as T
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    recon = unit_rows(N_DB_ROWS, 128, gen, dev)
+    b, k = RERANK_B, K
+    out = {}
+    for sl in RERANK_SLS:
+        first = torch.randint(0, N_DB_ROWS - sl - b, (1,), generator=gen,
+                              device=dev)
+        # clip j starts at the song's row first + j; the last clips are
+        # tail ids with fewer segments
+        n_seg = torch.full((b,), sl, dtype=torch.int32, device=dev)
+        n_seg[-3:] = torch.tensor([max(1, sl - 2), max(1, sl - 1), sl],
+                                  dtype=torch.int32, device=dev)
+        rows = first + torch.arange(b, device=dev)[:, None] \
+            + torch.arange(sl, device=dev)[None, :]
+        q = recon[rows] + 0.3 * torch.randn((b, sl, 128), generator=gen,
+                                            device=dev)
+        q /= torch.linalg.vector_norm(q, dim=2, keepdim=True)
+        q *= (torch.arange(sl, device=dev)[None, :]
+              < n_seg[:, None])[:, :, None]
+        q = q.contiguous()
+        _, hits = T.topk_ip(q.reshape(-1, 128), recon, k)
+        hits = hits.reshape(b, sl, k).contiguous()
+        k_out = min(E.K_OUT, sl * k)
+        E.reset_launches()
+        got = E.rerank_f32(q, hits, n_seg, recon, k_out)
+        hits_np, n_seg_np = hits.cpu().numpy(), n_seg.cpu().numpy()
+        cands = torch.from_numpy(E.candidate_starts(hits_np, n_seg_np, sl)
+                                 ).to(dev)
+        want = E.rerank_plain(q, cands, recon, sl, n_seg)
+        torch.cuda.synchronize()
+        if E.LAUNCHES["rerank"] != 1:
+            raise AssertionError(f"rerank launches {E.LAUNCHES}")
+        gs = rerank_scores64(q, hits, n_seg, recon, got)
+        ws = rerank_scores64(q, hits, n_seg, recon, want)
+        fin = torch.isfinite(ws)
+        gap = float((gs - ws)[fin].abs().max()) if fin.any() else 0.0
+        pad = torch.full_like(ws[:, :1], -torch.inf)
+        clear = torch.minimum(
+            torch.cat([torch.full_like(pad, torch.inf), ws[:, :-1]], 1) - ws,
+            ws - torch.cat([ws[:, 1:], pad], 1)) > 2 * RERANK_SCORE_ATOL
+        same_empty = torch.equal(got == E.NO_PICK, want == E.NO_PICK)
+        ids_equal = torch.equal(got.long()[clear], want[clear])
+        id_share = float((got.long() == want).float().mean())
+        if not (same_empty and ids_equal and gap <= RERANK_SCORE_ATOL):
+            raise AssertionError(
+                f"rerank at sl {sl}: empty slots equal {same_empty}, ids "
+                f"equal where clear {ids_equal}, score gap {gap}")
+        # the bytes a valid window touches once, and the inputs
+        c = cands.cpu().numpy()
+        srt = np.sort(c, axis=1)
+        dup = np.concatenate([np.zeros_like(srt[:, :1], bool),
+                              srt[:, 1:] == srt[:, :-1]], 1)
+        valid = (srt >= 0) & (srt + n_seg_np[:, None] <= N_DB_ROWS) & ~dup
+        touched = np.unique(np.concatenate(
+            [np.arange(s, s + n) for s, n in zip(
+                srt[valid], np.repeat(n_seg_np, valid.sum(1)))]
+            or [np.zeros(0, np.int64)]))
+        in_bytes = (q.numel() + hits.numel() + n_seg.numel()) * 4
+        bound_bytes = touched.size * 128 * 4 + in_bytes + got.numel() * 4
+        gathered = b * sl * k * sl * 128 * 4
+        ms = time_ms(lambda: E.rerank_f32(q, hits, n_seg, recon, k_out), 50)
+        plain_ms = time_ms(
+            lambda: E.rerank_plain(q, cands, recon, sl, n_seg), 5)
+
+        # both routes of hits_for_block past the search, host wall a block
+        class Hits:
+            def search(self, rows_q, kk):
+                return None, hits_np.reshape(-1, kk)
+        query = recon[first + torch.arange(b + sl, device=dev)].cpu().numpy()
+        ids = np.arange(b)
+        recon_np = None
+
+        def card_route():
+            return E.hits_for_block(Hits(), recon, recon_np, query, ids, sl,
+                                    k)
+
+        def plain_route():
+            q_seq = np.empty((b, sl, 128), np.float32)
+            ns = np.empty(b, np.int32)
+            E._fill_queries(query, ids, sl, q_seq, ns)
+            cc = E.candidate_starts(hits_np, ns, sl)
+            p = E.rerank_plain(torch.from_numpy(q_seq).to(dev),
+                               torch.from_numpy(cc.astype(np.int64)).to(dev),
+                               recon, sl, torch.from_numpy(ns).to(dev))
+            return p.cpu().numpy()
+        walls = {}
+        for name, fn in (("card", card_route), ("plain", plain_route)):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            walls[name] = (time.perf_counter() - t0) / 20 * 1e3
+        E.reset_launches()
+        card_pred, plain_pred = card_route(), plain_route()
+        if E.LAUNCHES["rerank"] != 1:
+            raise AssertionError(f"hits_for_block launched {E.LAUNCHES}")
+        route_agree = float((card_pred == plain_pred).mean())
+        out[sl] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_bytes / PEAK_BYTES * 1e3,
+            bound_bytes=int(bound_bytes), touched_rows=int(touched.size),
+            gathered_bytes=gathered,
+            gathered_ms=gathered / PEAK_BYTES * 1e3, score_gap=gap,
+            id_share=id_share, route_wall_ms=walls,
+            route_id_share=route_agree,
+            valid_candidates=int(valid.sum()))
+        log(f"  rerank B {b} x sl {sl} x k {k} over {N_DB_ROWS} rows: kernel "
+            f"{ms:.4f} ms, bound {out[sl]['bound_ms']:.4f} ms "
+            f"({touched.size} rows touched, {bound_bytes} B), gathered "
+            f"{gathered} B = {out[sl]['gathered_ms']:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (x{plain_ms / ms:.2f}); score gap {gap:.3g},"
+            f" ids equal {id_share:.4f}; host wall a block: card "
+            f"{walls['card']:.4f} ms, plain {walls['plain']:.4f} ms (routes' "
+            f"ids equal {route_agree:.4f})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the serving path through the CLI
 # ---------------------------------------------------------------------------
@@ -1447,6 +1609,7 @@ def phase_main_path(dev):
     from nafp_tpu_torch.configuration import load_config
     from nafp_tpu_torch.data.audio_io import create_memmap, load_memmap
     from nafp_tpu_torch.models.convert import save_params_npz
+    from nafp_tpu_torch.search import evaluate as E
     from nafp_tpu_torch.search import topk as T
 
     data = os.path.join(WORK, "data")
@@ -1519,10 +1682,11 @@ def phase_main_path(dev):
 
     for itype, kernel in paths.items():
         T.reset_launches()
+        E.reset_launches()
         t0 = time.perf_counter()
         cli(evaluate_args(itype), standalone_mode=False)
         wall = time.perf_counter() - t0
-        launches_by_run[itype] = dict(T.LAUNCHES)
+        launches_by_run[itype] = dict(T.LAUNCHES, **E.LAUNCHES)
         for name in ("raw_score.npy", "test_ids.npy", "eval_summary.json"):
             if not os.path.exists(os.path.join(emb_dir, name)):
                 raise AssertionError(f"evaluate -i {itype}: {name} missing")
@@ -1544,8 +1708,14 @@ def phase_main_path(dev):
     if not os.path.exists(os.path.join(WORK, "sq8_store.npz")):
         raise AssertionError("sq8 --index_cache store was not written")
     launches = {name: sum(r[name] for r in launches_by_run.values())
-                for name in T.LAUNCHES}
+                for name in (*T.LAUNCHES, *E.LAUNCHES)}
     log(f"  kernel launches on the main path: {launches}")
+    blocks = -(-N_TEST // 128) * len(results["l2"]["summary"]["seq_lens"])
+    for itype, n in launches_by_run.items():
+        if n["rerank"] != blocks:
+            raise AssertionError(f"evaluate -i {itype} launched the re-rank "
+                                 f"{n['rerank']} times, one a block: "
+                                 f"{blocks}")
     predicted = {"l2": ("topk_ip", B1_LAUNCHES_PER_RUN),
                  "ivfpq": ("topk_ip_masked", B3_LAUNCHES_PER_RUN),
                  "ivfpq-rr": ("topk_ip_masked", B3_LAUNCHES_PER_RUN)}
@@ -3530,6 +3700,7 @@ def main() -> int:
     rec = timed("kernels", phase_kernels, dev)
     ln2d = timed("LayerNorm2d", phase_layernorm2d, dev)
     lamb = timed("LAMB", phase_lamb, dev)
+    rerank = timed("rerank", phase_rerank, dev)
     log("[3/10] serving path through the CLI (full width)")
     main_path = timed("main path", phase_main_path, dev)
     ivf_sq8 = timed("IVF-SQ8", phase_ivf_sq8, dev, main_path)
@@ -3619,13 +3790,26 @@ def main() -> int:
         max_abs_err=lamb["abs_gaps"], max_rel_err=lamb["gaps"],
         trust_ratios=lamb["ratios"], two_runs_equal=lamb["two_runs_equal"],
         launches=ln2d["lamb_launches"], launches_run="640_lamb, 3 steps"))
+    # ms a block of 128 clips x 20 hits a segment, by length; the launches
+    # of the main path's evaluates (one a block)
+    kernels_line.append(dict(
+        name="rerank_f32", route="cuda",
+        source="nafp_tpu_torch/csrc/rerank_f32.cu",
+        replaces="none (XLA fusion)",
+        ms={sl: r["ms"] for sl, r in rerank.items()},
+        bound_ms={sl: r["bound_ms"] for sl, r in rerank.items()},
+        plain_ms={sl: r["plain_ms"] for sl, r in rerank.items()},
+        shape=f"B {RERANK_B} x sl {RERANK_SLS} x k {K}, {N_DB_ROWS} rows",
+        max_abs_err={sl: r["score_gap"] for sl, r in rerank.items()},
+        launches=main_path["launches"]["rerank"],
+        launches_run="evaluate -i l2, sq8, ivfpq, ivfpq-rr"))
     for r in kernels_line:
         r["max_err"] = r["max_abs_err"]
     summary = {k: v for k, v in main_path.items()
                if k not in ("cfg", "variables", "cfg_path", "dummy_dir",
                             "emb_dir", "l2_top1", "data", "raw")}
     summary.update(enc, training=training, sharded=sharded, triplet=triplet,
-                   layernorm2d=ln2d, lamb=lamb,
+                   layernorm2d=ln2d, lamb=lamb, rerank=rerank,
                    ivf_sq8={k: v for k, v in ivf_sq8.items()
                             if k not in ("raw", "store")},
                    measurement=measurement,

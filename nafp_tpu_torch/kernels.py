@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = ("topk_f32", "topk_sq8", "topk_masked", "bench_variant",
-           "bench_dotonly", "layernorm2d", "lamb")
+           "bench_dotonly", "layernorm2d", "lamb", "rerank_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

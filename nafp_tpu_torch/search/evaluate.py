@@ -15,17 +15,23 @@ Counterpart of ``nafp_tpu/search/evaluate.py`` (reference
     and ``eval_summary.json``.
 
 Tail test ids (fewer than seq_len segments left) are zero-padded into the
-search batch and their padded hits dropped. Candidate scoring runs on the
-device when the merged array fits half the free device memory, on the host
-otherwise. The final top-10 breaks score ties by the lower candidate slot,
-as ``jax.lax.top_k`` does.
+search batch and their padded hits dropped. The re-rank runs where the
+merged array lives: in one launch of the kernel ``csrc/rerank_f32.cu``
+(``rerank_f32``) when it is on the card, as PyTorch ops (``rerank_plain``,
+the kernel's plain version) when it is a CPU tensor, and in numpy over the
+host array when it did not fit half the free device memory. The final
+top-10 breaks score ties by the lower candidate slot, as ``jax.lax.top_k``
+does. ``LAUNCHES`` counts the kernel's launches, one a block re-ranked on
+the card.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
 import os
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -36,7 +42,19 @@ from nafp_tpu_torch.device import (DeviceLike, chunked_device_put,
 from nafp_tpu_torch.search.index import cacheable_cls, get_index
 from nafp_tpu_torch.search.table import LiveTable, print_results_table
 from nafp_tpu_torch.search.topk import topk_low_index
-from nafp_tpu_torch.utils.profiling import span
+from nafp_tpu_torch.utils.profiling import count, span
+
+K_OUT = 10              # answers a clip: the protocol's top 10
+NO_PICK = -999999       # an answer slot without a valid candidate
+RERANK_K_MAX = 32       # csrc/rerank_f32.cu K_MAX
+RERANK_SMEM_KEYS = 8192  # csrc/rerank_f32.cu SMEM_KEYS: sorted in shared memory
+
+LAUNCHES: Dict[str, int] = {"rerank": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _score_candidates(q_seq: torch.Tensor, cands: torch.Tensor,
@@ -84,6 +102,143 @@ def _score_candidates_host(q_seq, cands, recon, sl, n_seg):
         / n_seg[:, None].astype(np.float64)
     scores[invalid] = -np.inf
     return scores, cands_sorted
+
+
+def candidate_starts(hit_ids: np.ndarray, n_seg: np.ndarray,
+                     sl: int) -> np.ndarray:
+    """(B, sl·k) candidate start ids of a block's segment hits (B, sl, k):
+    hit − segment offset (eval_faiss.py:215-216), -1 where the hit is
+    negative (:219) or its segment is padding (at or past n_seg)."""
+    b = len(hit_ids)
+    seg_valid = np.arange(sl)[None, :] < n_seg[:, None]
+    hit_ids = np.where(seg_valid[:, :, None], hit_ids, -1)
+    starts = hit_ids - np.arange(sl)[None, :, None]
+    return np.where(hit_ids < 0, -1, starts).reshape(b, -1)
+
+
+def rerank_plain(q_seq: torch.Tensor, cands: torch.Tensor,
+                 recon: torch.Tensor, sl: int, n_seg: torch.Tensor
+                 ) -> torch.Tensor:
+    """The re-rank as PyTorch ops on ``recon``'s device (the CPU route, and
+    the kernel's plain version): (B, min(K_OUT, C)) int64 candidate starts,
+    best first, NO_PICK where no valid candidate is left."""
+    scores, cands_sorted = _score_candidates(q_seq, cands, recon, sl, n_seg)
+    top, pos = topk_low_index(scores, min(K_OUT, scores.shape[1]))
+    return torch.where(torch.isfinite(top), cands_sorted.gather(1, pos),
+                       NO_PICK)
+
+
+_RERANK_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                    + [ctypes.c_void_p] * 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _rerank_fn():
+    from nafp_tpu_torch import kernels
+    return kernels.function("rerank_f32", _RERANK_ARGTYPES)
+
+
+def rerank_f32(q_seq: torch.Tensor, hits: torch.Tensor, n_seg: torch.Tensor,
+               recon: torch.Tensor, k_out: int) -> torch.Tensor:
+    """The re-rank of a block in one launch of ``csrc/rerank_f32.cu``, on
+    one CUDA device: q_seq (B, sl, d) f32 with rows past n_seg zero, hits
+    (B, sl, k) int32 segment hits (-1 = none), n_seg (B,) int32, recon (N,
+    d) f32. Returns (B, k_out) int32 candidate starts, best first, NO_PICK
+    where no valid candidate is left: what ``candidate_starts`` +
+    ``rerank_plain`` give, but for the order of f32 sums. Raises for
+    tensors off the card (the plain version is ``rerank_plain``)."""
+    b, sl, d = q_seq.shape
+    kp = hits.shape[2] if hits.dim() == 3 else 0
+    n = recon.shape[0]
+    dev = recon.device
+    if dev.type != "cuda":
+        raise ValueError(f"rerank_f32 runs on the card; recon is on {dev} "
+                         "(the plain version is rerank_plain)")
+    for name, t, dtype, shape in (
+            ("q_seq", q_seq, torch.float32, (b, sl, d)),
+            ("hits", hits, torch.int32, (b, sl, kp)),
+            ("n_seg", n_seg, torch.int32, (b,)),
+            ("recon", recon, torch.float32, (n, d))):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"rerank_f32: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, expected a "
+                             f"contiguous {dtype} {shape} on {dev}")
+    if not (1 <= k_out <= min(RERANK_K_MAX, sl * kp)) or not 0 < n < 2 ** 31:
+        raise ValueError(f"rerank_f32: k_out {k_out} (at most "
+                         f"{RERANK_K_MAX} and sl·k = {sl * kp}), {n} rows")
+    out = torch.empty((b, k_out), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out
+    p2 = 1 << (sl * kp - 1).bit_length()
+    scratch = (torch.empty(b * p2, dtype=torch.int32, device=dev)
+               if p2 > RERANK_SMEM_KEYS else None)
+    vec = 4 if d % 4 == 0 and q_seq.data_ptr() % 16 == 0 \
+        and recon.data_ptr() % 16 == 0 else 1
+    with torch.cuda.device(dev):
+        err = _rerank_fn()(
+            q_seq.data_ptr(), hits.data_ptr(), n_seg.data_ptr(),
+            recon.data_ptr(), b, sl, d, kp, n, k_out, p2, vec,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"nafp_rerank_f32 kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["rerank"] += 1
+    return out
+
+
+class _Staging:
+    """A block's re-rank inputs in one pinned host buffer, for one copy up:
+    q_seq (B, sl, d) f32, hits (B, sl, k) int32 and n_seg (B,) int32, each
+    at a 16-byte boundary. Each block takes a buffer of its own from
+    PyTorch's caching pinned allocator, which hands a buffer out again only
+    once nothing refers to it and its copies have ended: the caller of
+    ``index.search`` may keep the query rows it was given (the benchmark's
+    check does)."""
+
+    def __init__(self, b: int, sl: int, d: int, kp: int):
+        self.parts, size = self.layout(b, sl, d, kp)
+        self.buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        self.q_seq, self.hits, self.n_seg = (
+            t.numpy() for t in self.views(self.buf))
+
+    @staticmethod
+    def layout(b: int, sl: int, d: int, kp: int):
+        """[(byte offset, shape, dtype)] of q_seq, hits and n_seg, and the
+        buffer's size in bytes."""
+        parts, off = [], 0
+        for shape, dtype in (((b, sl, d), torch.float32),
+                             ((b, sl, kp), torch.int32),
+                             ((b,), torch.int32)):
+            parts.append((off, shape, dtype))
+            off += -(-int(np.prod(shape)) * 4 // 16) * 16
+        return parts, off
+
+    def views(self, buf: torch.Tensor):
+        """q_seq, hits and n_seg as views of ``buf`` (this buffer or its
+        copy)."""
+        return [buf[off:off + 4 * int(np.prod(shape))].view(dtype).view(shape)
+                for off, shape, dtype in self.parts]
+
+    def upload(self, dev: torch.device):
+        """One copy of the whole buffer to ``dev`` on its current stream,
+        without waiting: q_seq, hits and n_seg there."""
+        return self.views(self.buf.to(dev, non_blocking=True))
+
+
+def _fill_queries(query, ids_block, sl: int, q_seq: np.ndarray,
+                  n_seg: np.ndarray) -> None:
+    """q_seq[j] = the sl query rows from ids_block[j], zero past the n_seg[j]
+    that are left (a tail test id has fewer; the reference searches the
+    truncated sequence, eval_faiss.py:208)."""
+    n_seg[:] = np.minimum(len(query) - ids_block, sl)
+    off = np.arange(sl)
+    valid = off[None, :] < n_seg[:, None]
+    rows = np.where(valid, ids_block[:, None] + off[None, :], 0)
+    np.take(np.asarray(query, np.float32), rows, axis=0, out=q_seq,
+            mode="clip")
+    q_seq[~valid] = 0.0
 
 
 # Above this size the merged dummy_db+db array lives on disk, not RAM.
@@ -134,48 +289,57 @@ def hits_for_block(index, recon_dev, recon_host, query, ids_block, sl,
                    k_probe):
     """The (B, 10) ranked candidate start ids for a block of test ids at
     one sequence length: the protocol's unit of work, one search of the
-    block's B·sl segments and one re-rank."""
+    block's B·sl segments and one re-rank. With ``recon_dev`` on the card
+    the re-rank is one copy up of the staged block, one launch of
+    ``rerank_f32`` and one copy of the answers down."""
     b = len(ids_block)
     d = query.shape[1]
+    ids_block = np.asarray(ids_block)
+    on_card = recon_dev is not None and recon_dev.device.type == "cuda"
     with span("query.assemble"):
-        q_seq = np.zeros((b, sl, d), np.float32)
-        n_seg = np.minimum(len(query) - ids_block, sl).astype(np.int32)
-        for j, t in enumerate(ids_block):
-            q_seq[j, :n_seg[j]] = query[t:t + n_seg[j]]
+        if on_card:
+            stage = _Staging(b, sl, d, k_probe)
+            q_seq, n_seg = stage.q_seq, stage.n_seg
+        else:
+            q_seq = np.empty((b, sl, d), np.float32)
+            n_seg = np.empty(b, np.int32)
+        _fill_queries(query, ids_block, sl, q_seq, n_seg)
     _, hit_ids = index.search(q_seq.reshape(-1, d), k_probe)
-    with span("query.assemble"):
-        hit_ids = hit_ids.reshape(b, sl, k_probe)
-        # drop hits from padded (zero) segments
-        seg_valid = np.arange(sl)[None, :] < n_seg[:, None]
-        hit_ids = np.where(seg_valid[:, :, None], hit_ids, -1)
-        # offset compensation (eval_faiss.py:215-216); ignore id<0 (:219)
-        starts = hit_ids - np.arange(sl)[None, :, None]
-        starts = np.where(hit_ids < 0, -1, starts)
-        cands = starts.reshape(b, sl * k_probe)
 
-    if recon_dev is not None:
+    if on_card:
         dev = recon_dev.device
+        with span("query.assemble"):
+            stage.hits[...] = hit_ids.reshape(b, sl, k_probe)
         with span("query.rerank"):
-            scores, cands_sorted = _score_candidates(
-                torch.from_numpy(q_seq).to(dev),
-                torch.from_numpy(cands.astype(np.int64)).to(dev), recon_dev,
-                sl, torch.from_numpy(n_seg).to(dev))
-            k10 = min(10, scores.shape[1])
-            top_scores, pos = topk_low_index(scores, k10)
-            pred = cands_sorted.gather(1, pos)
-            valid = torch.isfinite(top_scores)
+            q_d, hits_d, n_seg_d = stage.upload(dev)
+            out = rerank_f32(q_d, hits_d, n_seg_d, recon_dev,
+                             min(K_OUT, sl * k_probe))
         with span("query.rerank_wait"):
-            pred, valid = pred.cpu().numpy(), valid.cpu().numpy()
+            host = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+            pred = host.numpy().astype(np.int64)
+        count("query.rerank_fused")
+        return pred
+
+    with span("query.assemble"):
+        cands = candidate_starts(hit_ids.reshape(b, sl, k_probe), n_seg, sl)
+    if recon_dev is not None:
+        with span("query.rerank"):
+            pred = rerank_plain(torch.from_numpy(q_seq),
+                                torch.from_numpy(cands.astype(np.int64)),
+                                recon_dev, sl, torch.from_numpy(n_seg))
+        with span("query.rerank_wait"):
+            pred = pred.numpy()
     else:
         with span("query.rerank"):
             scores, cands_sorted = _score_candidates_host(
                 q_seq, cands, recon_host, sl, n_seg)
-            k10 = min(10, scores.shape[1])
+            k10 = min(K_OUT, scores.shape[1])
             pos = np.argsort(-scores, axis=1, kind="stable")[:, :k10]
             top_scores = np.take_along_axis(scores, pos, axis=1)
             pred = np.take_along_axis(cands_sorted, pos, axis=1)
-            valid = np.isfinite(top_scores)
-    pred = np.where(valid, pred, -999999)
+            pred = np.where(np.isfinite(top_scores), pred, NO_PICK)
     return pred  # (B, 10) ranked candidate start ids
 
 

@@ -67,6 +67,7 @@ void __syncwarp(unsigned m = 0xffffffffu);
 template <class T> T __shfl_xor_sync(unsigned, T, int);
 template <class T> T __shfl_down_sync(unsigned, T, unsigned);
 template <class T> T __shfl_sync(unsigned, T, int);
+template <class T> T __shfl_up_sync(unsigned, T, unsigned);
 unsigned __ballot_sync(unsigned, int);
 int __any_sync(unsigned, int);
 int __popc(unsigned);

@@ -15,6 +15,7 @@ from nafp_tpu_torch import kernels
 from nafp_tpu_torch.extras import bench_sq8_kernel as B
 from nafp_tpu_torch.ops import layernorm2d as L
 from nafp_tpu_torch.optim import lamb
+from nafp_tpu_torch.search import evaluate as E
 from nafp_tpu_torch.search import topk as T
 
 # the argtypes each Python caller sets for a C entry point; the occupancy
@@ -29,6 +30,7 @@ WRAPPER_ARGTYPES = {
     "nafp_layernorm2d_fwd": L._ARGTYPES["_fwd"],
     "nafp_layernorm2d_bwd": L._ARGTYPES["_bwd"],
     "nafp_lamb_step": lamb._ARGTYPES,
+    "nafp_rerank_f32": E._RERANK_ARGTYPES,
 }
 _EXTERN = re.compile(r'extern "C" int (nafp_\w+)\(([^)]*)\)', re.S)
 
@@ -70,7 +72,7 @@ def _ctypes_kind(t) -> str:
 
 
 def test_every_entry_point_is_known():
-    assert len(ENTRY_POINTS) == 13
+    assert len(ENTRY_POINTS) == 14
     for name in ENTRY_POINTS:
         assert name in WRAPPER_ARGTYPES or name.endswith("_occupancy"), name
     assert set(WRAPPER_ARGTYPES) <= set(ENTRY_POINTS)

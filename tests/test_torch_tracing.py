@@ -13,7 +13,8 @@ on the CPU:
   time;
 - a FlatIndex search, ``hits_for_block``, ``generate_fingerprint`` and a
   ``TrainStep`` each record their named spans and no counter but the
-  loader's;
+  loader's (and, on the card, the re-rank kernel's
+  ``query.rerank_fused``);
 - ``device_summary`` (``device_profile``'s arithmetic) counts kernels,
   copies and memsets only, never the user annotations the profiler
   mirrors onto the device's timeline.
@@ -189,18 +190,27 @@ def test_flat_index_search_spans(monkeypatch):
     assert snap["counts"] == {}
 
 
-@pytest.mark.parametrize("on_device", [True, False],
-                         ids=["device-rerank", "host-rerank"])
-def test_hits_for_block_spans(monkeypatch, on_device):
+@pytest.mark.parametrize("route", [
+    "cpu", "host", pytest.param("card", marks=pytest.mark.gpu)],
+    ids=["device-rerank", "host-rerank", "card-rerank"])
+def test_hits_for_block_spans(monkeypatch, route):
+    """The spans of a block on each re-rank route; the card's kernel counts
+    one launch and one ``query.rerank_fused`` a block, the others none."""
     from nafp_tpu_torch.search import evaluate as E
     from nafp_tpu_torch.search import index as I
+    dev = CPU
+    if route == "card":
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+        dev = torch.device("cuda", 0)
     monkeypatch.setattr(I.FlatIndex, "PALLAS_MIN_ROWS", 1000)
     assert E._hits_for_block is E.hits_for_block
     db = _db()
-    idx = I.FlatIndex(db, device=CPU)
-    recon = torch.from_numpy(db) if on_device else None
+    idx = I.FlatIndex(db, device=dev)
+    recon = None if route == "host" else torch.from_numpy(db).to(dev)
     query = db[:300] + 0.01
     ids = np.arange(0, 260, 2)[:128]
+    E.reset_launches()
     plain = E.hits_for_block(idx, recon, db, query, ids, 3, 10)
     with _profile():
         pred = E.hits_for_block(idx, recon, db, query, ids, 3, 10)
@@ -209,12 +219,14 @@ def test_hits_for_block_spans(monkeypatch, on_device):
     snap = P.snapshot()
     sp = snap["spans"]
     want = {"query.assemble", "query.rerank", "index.search", "index.wait"}
-    want |= {"query.rerank_wait"} if on_device else set()
+    want |= {"query.rerank_wait"} if recon is not None else set()
     assert set(sp) == want
     assert sp["query.assemble"]["n"] == 2
     assert all(sp[n]["n"] == 1 for n in want - {"query.assemble"})
     assert sp["index.search"]["total_s"] >= sp["index.wait"]["total_s"]
-    assert snap["counts"] == {}
+    fused = route == "card"
+    assert snap["counts"] == ({"query.rerank_fused": 1} if fused else {})
+    assert E.LAUNCHES["rerank"] == (2 if fused else 0)
 
 
 def _tiny_cfg(root):
